@@ -1,0 +1,90 @@
+"""Wrapper of the hand-written CUDA overlap kernel (csrc/overlap_sweep.cu).
+
+Replaces the TPU kernel fastp_tpu/ops/overlap_pallas.py:_mm_kernel and its
+consumer fastp_tpu/ops/overlap.py:_select_first_accept with one fused
+launch per batch: the offset sweep and the first-accept selection, so no
+[B, n_off] mismatch matrix is written to device memory.  What bounds it on
+the card is latency and launch overhead, not bandwidth (see the source).
+
+`sweep_select` runs the kernel for CUDA tensors and the plain PyTorch
+version (ops/overlap.py:sweep_select_plain) only for CPU tensors.  It
+counts its kernel launches in `sweep_select.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .overlap import sweep_select_plain
+
+_SMEM_BUDGET = 48 * 1024  # default dynamic shared memory per block
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from ..cuda_build import load
+        fn = load("overlap_sweep").overlap_sweep
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p, p, p, i, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("%s has dtype %s, expected %s" % (name, t.dtype, dtype))
+    if tuple(t.shape) != shape:
+        raise ValueError("%s has shape %s, expected %s"
+                         % (name, tuple(t.shape), shape))
+    if not t.is_contiguous():
+        raise ValueError("%s is not contiguous" % name)
+
+
+def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
+                 diff_pct: float):
+    """First accepted overlap offset per pair row.
+
+    seq1, rc2 (the reverse complement of read 2): uint8[B, L], contiguous;
+    len1, len2: int32[B] in [0, L].  Returns (overlapped bool[B],
+    offset int32[B], overlap_len int32[B], diff int32[B]); rows without an
+    accepted offset hold 0 in the three int fields."""
+    if seq1.device.type == "cpu":
+        return sweep_select_plain(seq1, rc2, len1, len2, diff_limit,
+                                  overlap_require, diff_pct)
+    if seq1.device.type != "cuda":
+        raise ValueError("sweep_select runs on cpu or cuda, not %s"
+                         % seq1.device)
+    B, L = seq1.shape
+    dev = seq1.device
+    _check("seq1", seq1, torch.uint8, (B, L), dev)
+    _check("rc2", rc2, torch.uint8, (B, L), dev)
+    _check("len1", len1, torch.int32, (B,), dev)
+    _check("len2", len2, torch.int32, (B,), dev)
+    if not 0 < 2 * L <= _SMEM_BUDGET:
+        raise ValueError("read width %d is outside the kernel's shared-memory "
+                         "row budget" % L)
+    warps = min(8, _SMEM_BUDGET // (2 * L))  # pair rows (warps) per block
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    offset = torch.empty(B, dtype=torch.int32, device=dev)
+    overlap_len = torch.empty(B, dtype=torch.int32, device=dev)
+    diff = torch.empty(B, dtype=torch.int32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(seq1.data_ptr(), rc2.data_ptr(), len1.data_ptr(),
+                 len2.data_ptr(), B, L, int(diff_limit), int(overlap_require),
+                 float(diff_pct), found.data_ptr(), offset.data_ptr(),
+                 overlap_len.data_ptr(), diff.data_ptr(), warps, stream)
+    if err != 0:
+        raise RuntimeError("overlap_sweep launch failed: CUDA error %d" % err)
+    sweep_select.launches += 1
+    return found, offset, overlap_len, diff
+
+
+sweep_select.launches = 0

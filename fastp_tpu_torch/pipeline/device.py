@@ -1,0 +1,337 @@
+"""Per-batch PE device step in PyTorch.
+
+Counterpart of fastp_tpu/pipeline/device.py:build_pe_step for the plain
+(uint8 inputs), unsharded, non-accumulating, lean step: the reference order
+of src/peprocessor.cpp:361-600 (stats, trim/cut, polyG, overlap analysis,
+correction, adapter trimming, polyX, filters, stats, histograms).  The step
+returns a numpy dict with the keys and value semantics that
+fastp_tpu.pipeline.device.unpack_from_host yields for the same cfg.
+Integers may be wider than the JAX step's slimmed int8/int16 transfer
+types, and int8-biased fields come back unbiased, as unpack_from_host
+gives them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fastp_tpu.config import PASS_FILTER, FILTER_RESULT_TYPES
+from fastp_tpu.pipeline.static_cfg import DeviceCfg
+
+from ..ops import adapter as adapter_ops
+from ..ops import correct as correct_ops
+from ..ops import filter as filter_ops
+from ..ops import overlap as overlap_ops
+from ..ops import polyx as polyx_ops
+from ..ops import stats as stats_ops
+from ..ops import trim as trim_ops
+from ..ops.common import I32, roll_front, scatter_count
+
+
+class _FilterCfgView:
+    """Adapter of DeviceCfg attribute names for ops.filter/trim."""
+
+    def __init__(self, cfg: DeviceCfg):
+        for k in ("enabledFront", "enabledTail", "enabledRight",
+                  "windowSizeFront", "qualityFront", "windowSizeTail",
+                  "qualityTail", "windowSizeRight", "qualityRight",
+                  "qualfilter_enabled", "qualifiedQual",
+                  "unqualifiedPercentLimit", "avgQualReq", "nBaseLimit",
+                  "lengthFilter_enabled", "requiredLength", "maxLength",
+                  "complexity_enabled", "complexity_threshold_percent"):
+            setattr(self, k, getattr(cfg, k))
+
+
+def _unsupported(cfg: DeviceCfg):
+    """Name the ROADMAP item of the first config outside the ported slice."""
+    if not cfg.paired:
+        return "single-end input (ROADMAP Queue 1 item 7)"
+    if not cfg.lean:
+        return ("--failed_out, or a host without the native routing "
+                "library (ROADMAP Queue 1 item 8)")
+    if cfg.merge_enabled:
+        return "--merge (ROADMAP Queue 1 item 10)"
+    if cfg.overlapped_out:
+        return "--overlapped_out (ROADMAP Queue 1 item 10)"
+    if cfg.allow_gap_overlap and (cfg.adapter_enabled or cfg.correction_enabled):
+        return "--allow_gap_overlap_trimming (ROADMAP Queue 1 item 11)"
+    if cfg.adapter_enabled and cfg.fasta_adapters:
+        return "--adapter_fasta (ROADMAP Queue 1 item 11)"
+    return None
+
+
+def aux_arg_names(cfg: DeviceCfg):
+    """Trailing per-batch aux args, statically derived from cfg (the
+    fastp_tpu step's signature: masks dead by configuration are left out,
+    and the valid mask is a prefix given by its count)."""
+    names = []
+    if cfg.has_pretrim:
+        names += ["pre_trim1", "pre_trim2"] if cfg.paired else ["pre_trim"]
+    if cfg.has_index_drop:
+        names.append("index_drop")
+    if cfg.has_dedup:
+        names.append("dedup_out")
+    names.append("nvalid")
+    return tuple(names)
+
+
+def make_aux(cfg: DeviceCfg, valid_or_n, pre_trim1=None, pre_trim2=None,
+             index_drop=None, dedup_out=None):
+    """Host-side aux tuple for the step (numpy)."""
+    out = []
+    if cfg.has_pretrim:
+        out.append(np.asarray(pre_trim1, np.int32))
+        if cfg.paired:
+            out.append(np.asarray(pre_trim2, np.int32))
+    if cfg.has_index_drop:
+        out.append(np.asarray(index_drop, bool))
+    if cfg.has_dedup:
+        out.append(np.asarray(dedup_out, bool))
+    n = (valid_or_n if isinstance(valid_or_n, (int, np.integer))
+         else int(valid_or_n.sum()))
+    out.append(np.int32(n))
+    return tuple(out)
+
+
+def _expand_aux(cfg: DeviceCfg, B: int, aux, device):
+    """(pre1, pre2, index_drop, dedup_out, valid) tensors from the aux tuple."""
+    d = dict(zip(aux_arg_names(cfg), aux))
+
+    def put(key, dtype):
+        if key not in d:
+            return torch.zeros(B, dtype=dtype, device=device)
+        return torch.as_tensor(np.asarray(d[key]), device=device).to(dtype)
+
+    pre1 = put("pre_trim1" if "pre_trim1" in d else "pre_trim", I32)
+    pre2 = put("pre_trim2", I32)
+    valid = torch.arange(B, dtype=I32, device=device) < int(d["nvalid"])
+    return pre1, pre2, put("index_drop", torch.bool), \
+        put("dedup_out", torch.bool), valid
+
+
+def _trim_one_end(bases, quals, lengths, pre_trim, cfg: DeviceCfg, is_r2: bool):
+    """UMI pre-trim roll + trimAndCut + window roll. Returns
+    (w_bases, w_quals, rlen, alive, front_trimmed, total_front)."""
+    b1 = roll_front(bases, pre_trim)
+    q1 = roll_front(quals, pre_trim)
+    l1 = lengths.to(I32) - pre_trim
+    fr = cfg.front2 if is_r2 else cfg.front1
+    tl = cfg.tail2 if is_r2 else cfg.tail1
+    front, rlen, alive = trim_ops.trim_and_cut(b1, q1, l1, fr, tl,
+                                               _FilterCfgView(cfg))
+    w_b = roll_front(b1, front)
+    w_q = roll_front(q1, front)
+    # frontTrimmed is 0 on the identity/resize-only paths
+    any_cut = cfg.enabledFront or cfg.enabledTail or cfg.enabledRight
+    front_trimmed = torch.zeros_like(front) if fr == 0 and not any_cut else front
+    return (w_b, w_q, torch.where(alive, rlen, 0), alive, front_trimmed,
+            pre_trim + front)
+
+
+def _apply_seq_adapters(w_b, rlen, alive, cfg: DeviceCfg, adapter, has_seq,
+                        ov_trimmed):
+    """Adapter by sequence.  Returns (rlen', info dict)."""
+    B = w_b.shape[0]
+    out = {"rlen_pre_adapter": rlen}
+    if cfg.adapter_enabled and has_seq and adapter.shape[0] > 0:
+        new_len, found, fpos = adapter_ops.trim_by_sequence(w_b, rlen, adapter)
+        found = found & alive & ~ov_trimmed
+        rlen = torch.where(found, new_len, rlen)
+        out["ad_found"] = found
+        out["ad_pos"] = fpos
+    else:
+        out["ad_found"] = torch.zeros(B, dtype=torch.bool, device=w_b.device)
+        out["ad_pos"] = torch.zeros(B, dtype=I32, device=w_b.device)
+    return rlen, out
+
+
+def _apply_polyx_maxlen(w_b, rlen, alive, cfg: DeviceCfg, is_r2: bool):
+    """polyX trimming + maxLen resize. Returns (rlen', polyx_reads, polyx_bases)."""
+    if cfg.polyx_enabled:
+        new_len, has_poly, poly, nbases = polyx_ops.trim_polyx(
+            w_b, rlen, cfg.polyx_min_len)
+        has_poly = has_poly & alive
+        rlen = torch.where(has_poly, new_len, rlen)
+        polyx_reads, polyx_bases = scatter_count(
+            torch.where(has_poly, poly, 4), 4, has_poly,
+            torch.where(has_poly, nbases, 0))
+    else:
+        polyx_reads = polyx_bases = torch.zeros(4, dtype=torch.int64,
+                                                device=w_b.device)
+    max_len = cfg.maxLen2 if is_r2 else cfg.maxLen1
+    if max_len > 0:
+        rlen = torch.where(alive & (rlen > max_len), max_len, rlen)
+    return rlen, polyx_reads, polyx_bases
+
+
+def _to_host(out: dict) -> dict:
+    """Copy every tensor of a (one-level nested) dict to numpy with ONE
+    device-to-host transfer: flatten to int64, concatenate, split."""
+    leaves = []
+    for k, v in out.items():
+        if isinstance(v, dict):
+            leaves += [((k, dk), dv) for dk, dv in v.items()]
+        else:
+            leaves.append(((k,), v))
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for _, t in leaves])
+    host = flat.cpu().numpy()
+    res: dict = {}
+    off = 0
+    for path, t in leaves:
+        n = t.numel()
+        np_dtype = {torch.bool: np.bool_, torch.uint8: np.uint8,
+                    torch.int32: np.int32}.get(t.dtype, np.int64)
+        val = host[off:off + n].reshape(tuple(t.shape)).astype(np_dtype)
+        off += n
+        if len(path) == 2:
+            res.setdefault(path[0], {})[path[1]] = val
+        else:
+            res[path[0]] = val
+    return res
+
+
+def build_pe_step(cfg: DeviceCfg, device):
+    """The PE step for `cfg` on `device` ("cuda", "cpu" or a torch.device).
+
+    The adapter bytes are uploaded once here.  The returned callable takes
+    (b1, q1, l1, b2, q2, l2, *aux) as numpy arrays or tensors -- uint8[B, L]
+    bases/quals, int[B] lengths, aux as make_aux builds it -- and returns
+    the numpy output dict."""
+    why = _unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError("fastp_tpu_torch does not support %s yet"
+                                  % why)
+    device = torch.device(device)
+    fview = _FilterCfgView(cfg)
+    adapters = tuple(torch.tensor(np.frombuffer(a, np.uint8).copy(),
+                                  dtype=torch.uint8, device=device)
+                     for a in (cfg.adapter_seq1, cfg.adapter_seq2))
+
+    def upload(x, dtype):
+        return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                               else x).to(device=device, dtype=dtype)
+
+    def step(b1, q1, l1, b2, q2, l2, *aux):
+        with torch.no_grad():
+            return _to_host(pe_step(upload(b1, torch.uint8), upload(q1, torch.uint8),
+                                    upload(l1, I32), upload(b2, torch.uint8),
+                                    upload(q2, torch.uint8), upload(l2, I32),
+                                    *_expand_aux(cfg, len(l1), aux, device)))
+
+    def pe_step(b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2, index_drop,
+                dedup_out, valid):
+        B, L = b1.shape
+        pre1 = stats_ops.stat_batch(b1, q1, l1, valid)
+        pre2 = stats_ops.stat_batch(b2, q2, l2, valid)
+
+        w1, wq1, rlen1, alive1, ft1, tf1 = _trim_one_end(b1, q1, l1, pre_trim1, cfg, False)
+        w2, wq2, rlen2, alive2, ft2, tf2 = _trim_one_end(b2, q2, l2, pre_trim2, cfg, True)
+        alive1 = alive1 & ~index_drop & valid
+        alive2 = alive2 & ~index_drop & valid
+        both = alive1 & alive2
+
+        if cfg.polyg_enabled:
+            rlen1 = torch.where(both, polyx_ops.trim_polyg(w1, rlen1, cfg.polyg_min_len), rlen1)
+            rlen2 = torch.where(both, polyx_ops.trim_polyg(w2, rlen2, cfg.polyg_min_len), rlen2)
+
+        out = {}
+        corr_matrix = torch.zeros(64, dtype=torch.int64, device=device)
+        ov_trimmed = torch.zeros(B, dtype=torch.bool, device=device)
+        rlen1_pre_ovtrim = rlen1
+        rlen2_pre_ovtrim = rlen2
+
+        ov = overlap_ops.analyze(w1, rlen1, w2, rlen2, cfg.overlap_diff_limit,
+                                 cfg.overlap_require, cfg.overlap_diff_pct)
+        ov_ok = ov["overlapped"] & both
+
+        # insert size (reference: statInsertSize, src/peprocessor.cpp:698-711)
+        isize = torch.where(
+            ov_ok,
+            torch.where(ov["offset"] > 0,
+                        rlen1 + rlen2 - ov["overlap_len"] + ft1 + ft2,
+                        ov["overlap_len"] + ft1 + ft2),
+            cfg.insert_size_max).clamp(max=cfg.insert_size_max)
+        isize_hist = scatter_count(torch.where(both, isize, cfg.insert_size_max),
+                                   cfg.insert_size_max + 1, both)[0]
+
+        if cfg.correction_enabled:
+            # slot budget of the sparse correction lists (fastp_tpu's B//8)
+            corr_c = max(2048, B // 8)
+            (w1, wq1, w2, wq2, corr_matrix, corrected, r1c, r2c, masks) = \
+                correct_ops.correct_by_overlap(
+                    w1, wq1, rlen1, w2, wq2, rlen2,
+                    ov_ok & ~ov["has_gap"], ov["offset"], ov["overlap_len"],
+                    ov["diff"])
+            for side, mask, wb, wq in (("c1", masks["mask1"], w1, wq1),
+                                       ("c2", masks["mask2"], w2, wq2)):
+                (out[side + "_rows"], out[side + "_pos"], out[side + "_base"],
+                 out[side + "_qual"], out[side + "_count"]) = \
+                    correct_ops.extract_deltas_sparse(mask, wb, wq, corr_c)
+            # corrected-read counter (reference: src/peprocessor.cpp:440-443)
+            corr_any = corrected > 0
+            both_c = r1c & r2c
+            out["corrected_reads"] = (2 * (corr_any & both_c).sum(dtype=I32)
+                                      + (corr_any & ~both_c).sum(dtype=I32))
+            out["corr_able"] = ov_ok & ~ov["has_gap"] & (ov["diff"] != 0)
+
+        if cfg.adapter_enabled:
+            nl1, nl2, ov_trimmed = adapter_ops.trim_by_overlap(
+                rlen1, rlen2, ov_ok, ov["offset"], ov["overlap_len"], ft1, ft2)
+            rlen1 = torch.where(both, nl1, rlen1)
+            rlen2 = torch.where(both, nl2, rlen2)
+            ov_trimmed = ov_trimmed & both
+
+        rlen1, ad1 = _apply_seq_adapters(w1, rlen1, both, cfg, adapters[0],
+                                         cfg.has_seq1, ov_trimmed)
+        rlen2, ad2 = _apply_seq_adapters(w2, rlen2, both, cfg, adapters[1],
+                                         cfg.has_seq2, ov_trimmed)
+
+        rlen1, px_r1, px_b1 = _apply_polyx_maxlen(w1, rlen1, both, cfg, False)
+        rlen2, px_r2, px_b2 = _apply_polyx_maxlen(w2, rlen2, both, cfg, True)
+
+        result1 = filter_ops.pass_filter(w1, wq1, rlen1, alive1, fview)
+        result2 = filter_ops.pass_filter(w2, wq2, rlen2, alive2, fview)
+        pass1 = (result1 == PASS_FILTER) & alive1
+        pass2 = (result2 == PASS_FILTER) & alive2
+        emit_pair = pass1 & pass2 & ~dedup_out & ~index_drop
+        # lean counting: max(result1, result2) weighted 2 over counted rows,
+        # the histogram route_pe would build
+        counted = valid & ~index_drop
+        out.update({
+            "pre1": pre1, "pre2": pre2,
+            "post1": stats_ops.stat_batch(w1, wq1, rlen1, emit_pair),
+            "post2": stats_ops.stat_batch(w2, wq2, rlen2, emit_pair),
+            "total_front1": tf1, "total_front2": tf2,
+            "rlen1": rlen1, "rlen2": rlen2,
+            "pass1": pass1, "pass2": pass2,
+            "ov_trimmed": ov_trimmed,
+            "rlen1_pre_ovtrim": rlen1_pre_ovtrim,
+            "rlen2_pre_ovtrim": rlen2_pre_ovtrim,
+            "ad_found1": ad1["ad_found"], "ad_pos1": ad1["ad_pos"],
+            "ad_found2": ad2["ad_found"], "ad_pos2": ad2["ad_pos"],
+            "rlen1_pre_adapter": ad1["rlen_pre_adapter"],
+            "rlen2_pre_adapter": ad2["rlen_pre_adapter"],
+            "polyx_reads": px_r1 + px_r2,
+            "polyx_bases": px_b1 + px_b2,
+            "isize_hist": isize_hist,
+            "corr_matrix": corr_matrix,
+            "result_hist": 2 * scatter_count(
+                torch.where(counted, torch.maximum(result1, result2), 0),
+                FILTER_RESULT_TYPES, counted)[0],
+        })
+        # the lean deletions of fastp_tpu's step (device.py:958-983)
+        if not (cfg.adapter_enabled or cfg.correction_enabled):
+            del out["rlen1_pre_ovtrim"], out["rlen2_pre_ovtrim"]
+        if not cfg.adapter_enabled:
+            for k in ("ov_trimmed", "ad_found1", "ad_pos1", "ad_found2",
+                      "ad_pos2", "rlen1_pre_adapter", "rlen2_pre_adapter"):
+                del out[k]
+        # total_front is the host-known pre-trim unless a front trim/cut
+        # can move the window start on device
+        if cfg.front1 == 0 and not cfg.enabledFront:
+            del out["total_front1"]
+        if cfg.front2 == 0 and not cfg.enabledFront:
+            del out["total_front2"]
+        return out
+
+    return step

@@ -1,0 +1,393 @@
+"""Paired-end streaming processor (reference: src/peprocessor.cpp:361-711).
+
+Counterpart of fastp_tpu/pipeline/pe_runner.py for the lean, unmerged PE
+path.  The batch loop is synchronous: read -> host pre-ops -> torch step
+(outputs copied to numpy) -> route_pe (reused from fastp_tpu) -> writers.
+"""
+from __future__ import annotations
+
+import sys
+from typing import Dict
+
+import numpy as np
+
+from fastp_tpu.config import Options
+from fastp_tpu.io.fastq import ArrayBatch, OutputWriter, open_batch_reader
+from fastp_tpu.report.filter_model import FilterResult
+from fastp_tpu.report.htmlreport import HtmlReporter
+from fastp_tpu.report.jsonreport import JsonReporter
+from fastp_tpu.report.stats_model import Stats, cpp_num
+from fastp_tpu.utils.readname import fix_mgi
+from fastp_tpu.pipeline.hostview import host_analyze_overlap, host_correct_pair
+from fastp_tpu.pipeline.pe_route import route_pe
+
+from .device import build_pe_step, make_aux
+from .runner import (BaseProcessor, _OverRepCounter, _round_width,
+                     group_pair_slices, group_slices)
+
+
+class _SeqView:
+    """List-like adapter exposing an ArrayBatch's per-row seq/qual bytes."""
+
+    def __init__(self, batch: ArrayBatch, quals: bool = False):
+        self.batch = batch
+        self.quals = quals
+
+    def __getitem__(self, i: int) -> bytes:
+        return (self.batch.qual_bytes(i) if self.quals
+                else self.batch.seq_bytes(i))
+
+    def __len__(self):
+        return self.batch.n
+
+
+def _check_supported(opt: Options):
+    """Options the port's PE path does not cover yet, with their ROADMAP item
+    (the step itself rejects the device-side configs)."""
+    for on, what in ((opt.interleavedInput, "--interleaved_in (item 11)"),
+                     (opt.outputToSTDOUT, "--stdout (item 11)"),
+                     (opt.split.enabled, "--split / --split_by_lines (item 8)")):
+        if on:
+            raise NotImplementedError(
+                "fastp_tpu_torch does not support %s yet (ROADMAP Queue 1)"
+                % what)
+
+
+class PairEndProcessor(BaseProcessor):
+    def __init__(self, opt: Options, device):
+        _check_supported(opt)
+        super().__init__(opt, device)
+        self.step = build_pe_step(self.cfg, device)
+        self.pre_stats1 = Stats(opt, False, self.width)
+        self.post_stats1 = Stats(opt, False, self.width * 2)
+        self.pre_stats2 = Stats(opt, True, self.width)
+        self.post_stats2 = Stats(opt, True, self.width)
+        self.filter_result = FilterResult(opt, True)
+        self.insert_hist = np.zeros(opt.insertSizeMax + 1, np.int64)
+        self.overrep_pre1 = _OverRepCounter(self.pre_stats1, opt)
+        self.overrep_pre2 = _OverRepCounter(self.pre_stats2, opt)
+        self.overrep_post1 = _OverRepCounter(self.post_stats1, opt)
+        self.overrep_post2 = _OverRepCounter(self.post_stats2, opt)
+        self.batches = 0
+
+    def process(self) -> Dict:
+        opt = self.opt
+        reader1 = open_batch_reader(opt.in1, opt.phred64)
+        reader2 = open_batch_reader(opt.in2, opt.phred64)
+        writers = {}
+        for key, path in (("out1", opt.out1), ("out2", opt.out2),
+                          ("unpaired1", opt.unpaired1)):
+            if path:
+                writers[key] = OutputWriter(path, opt.compression,
+                                            buffer_size=opt.writerBufferSize)
+        if opt.unpaired2 and opt.unpaired2 != opt.unpaired1:
+            writers["unpaired2"] = OutputWriter(opt.unpaired2, opt.compression,
+                                                buffer_size=opt.writerBufferSize)
+        pairs_seen = 0
+        last_reported = 0
+        while True:
+            n = opt.batchSize
+            if opt.readsToProcess > 0:
+                n = min(n, opt.readsToProcess - pairs_seen)
+                if n <= 0:
+                    break
+            batch1 = reader1.read_batch(n, self.width)
+            batch2 = reader2.read_batch(n, self.width)
+            if batch1 is None or batch2 is None:
+                break
+            parts = self._process_batch(batch1, batch2, pairs_seen)
+            for key, blob in parts.items():
+                if key in writers and blob:
+                    writers[key].write(blob)
+            pairs_seen += batch1.n
+            self.batches += 1
+            if opt.verbose and pairs_seen >= last_reported + 1000000:
+                from fastp_tpu.utils.log import loginfo
+                last_reported = pairs_seen
+                loginfo("Read1: loaded %dM reads" % (pairs_seen // 1000000))
+                loginfo("Read2: loaded %dM reads" % (pairs_seen // 1000000))
+        if opt.verbose:
+            from fastp_tpu.utils.log import loginfo
+            loginfo("batch loop done (%d pairs)" % pairs_seen)
+        reader1.close()
+        reader2.close()
+        for wtr in writers.values():
+            wtr.close()
+        return self._finish()
+
+    def _process_batch(self, batch1: ArrayBatch, batch2: ArrayBatch,
+                       pairs_seen: int) -> Dict[str, bytes]:
+        """Run one batch through the host pre-ops, the step and the routing;
+        returns the output blobs by stream."""
+        opt = self.opt
+        if batch1.n != batch2.n:
+            sys.stderr.write("\nWARNNIG: different read numbers of the input files\n"
+                             "Read1 count: %d\nRead2 count: %d\n"
+                             "Ignore the unmatched reads\n\n" % (batch1.n, batch2.n))
+            m = min(batch1.n, batch2.n)
+            batch1 = batch1.head(m)
+            batch2 = batch2.head(m)
+        B = batch1.n
+        if batch1.width != batch2.width:
+            w = max(batch1.width, batch2.width)
+            batch1 = batch1.widen(w)
+            batch2 = batch2.widen(w)
+        self.width = batch1.width
+
+        index_drop = self._index_drop_mask_batches(batch1, batch2)
+        if opt.fixMGI:
+            batch1.set_names([fix_mgi(nm)[0] for nm in batch1.names])
+            batch2.set_names([fix_mgi(nm)[0] for nm in batch2.names])
+        if opt.umi.enabled:
+            res = self.umi.process_batch_arrays(batch1, batch2)
+            if res is not None:
+                pre_trim1, pre_trim2 = res
+            else:
+                names1u, names2u, pre_trim1, pre_trim2 = self.umi.process_batch(
+                    batch1.names, _SeqView(batch1), batch2.names, _SeqView(batch2))
+                batch1.set_names(names1u)
+                batch2.set_names(names2u)
+                pre_trim1 = np.asarray(pre_trim1, np.int32)
+                pre_trim2 = np.asarray(pre_trim2, np.int32)
+        else:
+            pre_trim1 = np.zeros(B, np.int32)
+            pre_trim2 = np.zeros(B, np.int32)
+
+        b1, q1, l1 = batch1.bases, batch1.quals, batch1.lengths
+        b2, q2, l2 = batch2.bases, batch2.quals, batch2.lengths
+        dedup_out = np.zeros(B, bool)
+        if self.duplicate is not None:
+            dup = self.duplicate.check_batch_pe(b1, l1, b2, l2)
+            if opt.duplicate.dedup:
+                dedup_out = dup
+
+        (b1p, q1p, l1p, b2p, q2p, l2p, pt1p, pt2p, idxp, dedp), valid = \
+            self._pad_batch([b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2,
+                             index_drop, dedup_out], B, target=opt.batchSize)
+        out = self.step(b1p, q1p, l1p, b2p, q2p, l2p,
+                        *make_aux(self.cfg, valid, pt1p, pt2p, idxp, dedp))
+        # lean steps drop total_front when no front trim/cut can move the
+        # window start on device: it is exactly the host-known pre-trim
+        out.setdefault("total_front1", pre_trim1)
+        out.setdefault("total_front2", pre_trim2)
+
+        self.pre_stats1.add_batch(out["pre1"])
+        self.pre_stats2.add_batch(out["pre2"])
+        self.post_stats1.add_batch(out["post1"])
+        self.post_stats2.add_batch(out["post2"])
+        self.insert_hist[:len(out["isize_hist"])] += out["isize_hist"]
+        self.filter_result.add_polyx_trimmed(out["polyx_reads"],
+                                             out["polyx_bases"])
+        if opt.correction.enabled:
+            self.filter_result.add_correction_matrix(out["corr_matrix"])
+            self.filter_result.inc_corrected_reads(int(out["corrected_reads"]))
+        self.filter_result.filter_read_stats += \
+            out["result_hist"].astype(np.int64)
+
+        if opt.adapter.enabled:
+            self._record_adapters(out, batch1, batch2)
+
+        if self.overrep_pre1.enabled:
+            samp = self.overrep_pre1.sampling
+            rows = np.arange((-pairs_seen) % samp, B, samp, dtype=np.int32)
+            zeros = np.zeros(B, np.int32)
+            self.overrep_pre1.stat_rows(batch1.bases, zeros, batch1.lengths, rows)
+            self.overrep_pre2.stat_rows(batch2.bases, zeros, batch2.lengths, rows)
+
+        parts, _, _ = route_pe(self, out, batch1, batch2, B, index_drop,
+                               pre_trim1, pre_trim2, dedup_out)
+        return parts
+
+    def _record_adapters(self, out, batch1: ArrayBatch, batch2: ArrayBatch):
+        """Adapter recording (FilterResult::addAdapterTrimmed) in row order:
+        overlap-clipped pairs, then by-sequence hits per mate."""
+        from fastp_tpu.pipeline.hostview import PairWindowView
+        opt = self.opt
+        view = PairWindowView(_SeqView(batch1), _SeqView(batch1, True),
+                              _SeqView(batch2), _SeqView(batch2, True),
+                              out, opt.correction.enabled, batch1.width,
+                              ov_params=(opt.overlapDiffLimit,
+                                         opt.overlapRequire,
+                                         opt.overlapDiffPercentLimit / 100.0))
+        # corrections never land in the overlap-clipped region, so
+        # ov-trimmed adapters slice the raw arrays; rows with corrections
+        # use the correction-aware view for the by-sequence case
+        hc = view.has_corr if opt.correction.enabled else None
+        tf1a = out["total_front1"]
+        tf2a = out["total_front2"]
+        ba1, ba2 = batch1.bases, batch2.bases
+        fr = self.filter_result
+        rows = np.flatnonzero(out["ov_trimmed"])
+        if rows.size:
+            s01 = tf1a[rows].astype(np.int64)
+            s02 = tf2a[rows].astype(np.int64)
+            lo1 = s01 + out["rlen1_pre_adapter"][rows]
+            hi1 = s01 + out["rlen1_pre_ovtrim"][rows]
+            lo2 = s02 + out["rlen2_pre_adapter"][rows]
+            hi2 = s02 + out["rlen2_pre_ovtrim"][rows]
+            if not fr.add_adapter_trimmed_pairs_bulk(
+                    ba1, lo1, hi1, ba2, lo2, hi2, rows):
+                for _, b1b, b2b, c in group_pair_slices(
+                        ba1, lo1, hi1, ba2, lo2, hi2, rows):
+                    fr.add_adapter_trimmed_pair(
+                        b1b.decode("latin-1"), b2b.decode("latin-1"), count=c)
+        for found_key, pos_key, pre_key, slicer, tfa, ba, aseq, is_r2 in (
+                ("ad_found1", "ad_pos1", "rlen1_pre_adapter",
+                 view.r1_slice, tf1a, ba1, self.cfg.adapter_seq1, False),
+                ("ad_found2", "ad_pos2", "rlen2_pre_adapter",
+                 view.r2_slice, tf2a, ba2, self.cfg.adapter_seq2, True)):
+            found = out[found_key]
+            if not found.any():
+                continue
+            frows = np.flatnonzero(found)
+            ps = out[pos_key][frows].astype(np.int64)
+            pres = out[pre_key][frows].astype(np.int64)
+            tfs = tfa[frows].astype(np.int64)
+            hcs = hc[frows] if hc is not None else np.zeros(frows.size, bool)
+            entries = []  # explicit strings: (idx, str, count)
+            neg = ps < 0
+            negrows = np.flatnonzero(neg)
+            if negrows.size:  # adapter clipped at the read start
+                uniq, first, counts = np.unique(
+                    ps[negrows], return_index=True, return_counts=True)
+                for k in range(uniq.size):
+                    entries.append((int(negrows[first[k]]),
+                                    aseq[:len(aseq) + int(uniq[k])].decode(),
+                                    int(counts[k])))
+            # rows with corrections inside the adapter region need the
+            # correction-aware per-row view
+            for j in np.flatnonzero(~neg & hcs).tolist():
+                entries.append((j, slicer(int(frows[j]), int(ps[j]),
+                                          int(pres[j])).decode("latin-1"), 1))
+            nrm = np.flatnonzero(~neg & ~hcs)
+            entries.sort(key=lambda t: t[0])
+            lo = tfs + ps
+            hi = tfs + pres
+            if fr._adrec is not None:
+                # merged walk in row order: normal segments go to the native
+                # recorder in bulk, explicit strings one by one
+                start = 0
+                for idx, s, c in entries + [(len(found) + 1, "", 0)]:
+                    seg = nrm[(nrm >= start) & (nrm < idx)]
+                    if seg.size:
+                        fr.add_adapter_trimmed_rows_bulk(
+                            ba, frows[seg], lo[seg], hi[seg], is_r2)
+                    if s:
+                        fr.add_adapter_trimmed(s, is_r2, count=c)
+                    start = idx
+            else:
+                if nrm.size:
+                    for p0, bb, c in group_slices(ba, frows[nrm], lo[nrm],
+                                                  hi[nrm]):
+                        entries.append((int(nrm[p0]), bb.decode("latin-1"), c))
+                entries.sort(key=lambda t: t[0])
+                for _, s, c in entries:
+                    fr.add_adapter_trimmed(s, is_r2, count=c)
+
+    def _patch_corrections(self, batch1: ArrayBatch, batch2: ArrayBatch,
+                           out, B: int):
+        """Apply the step's sparse correction deltas in place to the padded
+        arrays so the native serializer emits corrected content.  Batches
+        whose count exceeds the slot capacity are recomputed exactly on the
+        host (reference: src/basecorrector.cpp:16-83)."""
+        C = out["c1_rows"].shape[0]  # slot capacity of the step
+        n1 = int(out["c1_count"])
+        n2 = int(out["c2_count"])
+        if n1 == 0 and n2 == 0:
+            return
+        if n1 > C or n2 > C:
+            self._host_correct_all(batch1, batch2, out, B)
+            return
+        tf1 = out["total_front1"]
+        tf2 = out["total_front2"]
+        for bt, tf, rows_k, pos_k, base_k, qual_k, cnt in (
+                (batch1, tf1, "c1_rows", "c1_pos", "c1_base", "c1_qual", n1),
+                (batch2, tf2, "c2_rows", "c2_pos", "c2_base", "c2_qual", n2)):
+            if cnt == 0:
+                continue
+            rows = out[rows_k][:cnt]
+            apos = tf[rows] + out[pos_k][:cnt]
+            ok = apos < bt.lengths[rows]
+            rows, apos = rows[ok], apos[ok]
+            bt.bases[rows, apos] = out[base_k][:cnt][ok]
+            bt.quals[rows, apos] = out[qual_k][:cnt][ok]
+
+    def _host_correct_all(self, batch1: ArrayBatch, batch2: ArrayBatch,
+                          out, B: int):
+        """Exact host recomputation of every correctable row (sparse-list
+        overflow path): the overlap is re-derived per row on the host from
+        the exact device window, then corrected."""
+        do = out["corr_able"][:B]
+        opt = self.opt
+        ovp = (opt.overlapDiffLimit, opt.overlapRequire,
+               opt.overlapDiffPercentLimit / 100.0)
+        tf1, tf2 = out["total_front1"], out["total_front2"]
+        b1, q1 = batch1.bases, batch1.quals
+        b2, q2 = batch2.bases, batch2.quals
+        for i in np.flatnonzero(do):
+            s01, s02 = int(tf1[i]), int(tf2[i])
+            e1, e2 = int(batch1.lengths[i]), int(batch2.lengths[i])
+            s1 = bytearray(b1[i, s01:e1].tobytes())
+            qq1 = bytearray(q1[i, s01:e1].tobytes())
+            s2 = bytearray(b2[i, s02:e2].tobytes())
+            qq2 = bytearray(q2[i, s02:e2].tobytes())
+            p1 = int(out["rlen1_pre_ovtrim"][i])
+            p2 = int(out["rlen2_pre_ovtrim"][i])
+            _, off, ol, _ = host_analyze_overlap(
+                b1[i, s01:s01 + p1], b2[i, s02:s02 + p2], *ovp)
+            host_correct_pair(s1, qq1, s2, qq2, p2, off, ol)
+            b1[i, s01:e1] = np.frombuffer(bytes(s1), np.uint8)
+            q1[i, s01:e1] = np.frombuffer(bytes(qq1), np.uint8)
+            b2[i, s02:e2] = np.frombuffer(bytes(s2), np.uint8)
+            q2[i, s02:e2] = np.frombuffer(bytes(qq2), np.uint8)
+
+    def _finish(self) -> Dict:
+        opt = self.opt
+        for c in (self.overrep_pre1, self.overrep_pre2,
+                  self.overrep_post1, self.overrep_post2):
+            c.flush()
+        sys.stderr.write("Read1 before filtering:\n")
+        self._print_stats(self.pre_stats1)
+        sys.stderr.write("\nRead2 before filtering:\n")
+        self._print_stats(self.pre_stats2)
+        sys.stderr.write("\nRead1 after filtering:\n")
+        self._print_stats(self.post_stats1)
+        sys.stderr.write("\nRead2 after filtering:\n")
+        self._print_stats(self.post_stats2)
+        sys.stderr.write("\nFiltering result:\n")
+        self._print_filter_result()
+
+        dup_rate = 0.0
+        if opt.duplicate.enabled:
+            dup_rate = self.duplicate.get_dup_rate()
+            sys.stderr.write("\nDuplication rate: %s%%\n" % cpp_num(dup_rate * 100.0))
+
+        peak = self._peak_insert_size()
+        sys.stderr.write("\nInsert size peak (evaluated by paired-end reads): %d\n" % peak)
+
+        jr = JsonReporter(opt)
+        jr.set_dup(dup_rate)
+        jr.set_insert_hist(self.insert_hist, peak)
+        jr.report(self.filter_result, self.pre_stats1, self.post_stats1,
+                  self.pre_stats2, self.post_stats2)
+        hr = HtmlReporter(opt)
+        hr.set_dup(dup_rate)
+        hr.set_insert_hist(self.insert_hist, peak)
+        hr.report(self.filter_result, self.pre_stats1, self.post_stats1,
+                  self.pre_stats2, self.post_stats2)
+        if self.duplicate is not None:
+            self.duplicate.release()
+        return {"pre1": self.pre_stats1, "post1": self.post_stats1,
+                "pre2": self.pre_stats2, "post2": self.post_stats2,
+                "filter": self.filter_result, "dup_rate": dup_rate,
+                "insert_peak": peak, "batches": self.batches}
+
+    def _peak_insert_size(self) -> int:
+        """reference: src/peprocessor.cpp:337-347"""
+        peak = 0
+        max_count = -1
+        for i in range(self.opt.insertSizeMax):
+            if self.insert_hist[i] > max_count:
+                peak = i
+                max_count = int(self.insert_hist[i])
+        return peak

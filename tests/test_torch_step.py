@@ -1,0 +1,103 @@
+"""The port's PE step (fastp_tpu_torch.pipeline.device.build_pe_step on the
+CPU) against fastp_tpu's, key by key.
+
+fastp_tpu's step returns packed buffers; unpack_from_host turns them into
+the dict its host loop reads.  The port returns that dict directly.  Both
+must have the same key set and, after casting to int64, the same values
+(exact: every output is an integer, a bool or a byte).
+"""
+import os
+import sys
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+
+from fastp_tpu.pipeline import device as j_device
+from fastp_tpu.pipeline.static_cfg import device_cfg_from_options
+from fastp_tpu_torch.cli import prepare_options
+from fastp_tpu_torch.pipeline import device as t_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R1 = os.path.join(ROOT, "tests", "testdata", "R1.fq")
+R2 = os.path.join(ROOT, "tests", "testdata", "R2.fq")
+BENCH = ["--correction", "--cut_right",
+         "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
+         "--adapter_sequence_r2", "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"]
+CONFIGS = {
+    "cfg3": ["--correction", "--cut_right"],
+    "bench": BENCH,
+    "bench_polyg": BENCH + ["--trim_poly_g"],
+    "cut_front_tail_polyx": ["--cut_front", "--cut_tail", "--trim_poly_x",
+                             "-f", "2", "-t", "1", "--low_complexity_filter"],
+}
+
+
+def _cfg(flags):
+    opt = prepare_options(["fastp_tpu_torch", "-i", R1, "-I", R2,
+                           "-o", "o1.fq", "-O", "o2.fq"] + flags)
+    return device_cfg_from_options(opt)
+
+
+def _synth_batch(seed, B=256, L=160, nvalid=240):
+    """tools/make_synth.py pairs (PE151, adapters, polyG, Ns), padded to L,
+    with some reads shortened and the rows past nvalid left as padding."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import make_synth
+    rng = np.random.default_rng(seed)
+    args = SimpleNamespace(short_insert_rate=0.25, qual_bins="nova4",
+                           n_rate=0.002, polyg_rate=0.08, dup_rate=0.05)
+    r1, r2, q1, q2 = make_synth._gen_chunk(rng, B, 151, args)
+    out = []
+    for r, q in ((r1, q1), (r2, q2)):
+        b = np.zeros((B, L), np.uint8)
+        qq = np.zeros((B, L), np.uint8)
+        b[:, :151], qq[:, :151] = r, q
+        ln = np.where(rng.random(B) < 0.2, rng.integers(0, 152, B), 151)
+        ln = ln.astype(np.int32)
+        pos = np.arange(L)
+        b[pos[None, :] >= ln[:, None]] = 0
+        qq[pos[None, :] >= ln[:, None]] = 0
+        b[nvalid:] = qq[nvalid:] = 0
+        ln[nvalid:] = 0
+        out += [b, qq, ln]
+    return out
+
+
+def _compare(got, want, path=""):
+    assert set(got) == set(want), (path, sorted(set(got) ^ set(want)))
+    for k in want:
+        if isinstance(want[k], dict):
+            _compare(got[k], want[k], path + k + ".")
+            continue
+        g = np.asarray(got[k]).astype(np.int64)
+        w = np.asarray(want[k]).astype(np.int64)
+        assert g.shape == w.shape, (path + k, g.shape, w.shape)
+        assert np.array_equal(g, w), (path + k, np.argwhere(g != w)[:5])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_step_matches_jax(name):
+    cfg = _cfg(CONFIGS[name])
+    assert cfg.lean
+    batch = _synth_batch(len(name))
+    aux_j = j_device.make_aux(cfg, 240)
+    step_j = j_device.build_pe_step(cfg)
+    want = j_device.unpack_from_host(jax.device_get(step_j(*batch, *aux_j)),
+                                     step_j.layout)
+    got = t_device.build_pe_step(cfg, "cpu")(*batch, *t_device.make_aux(cfg, 240))
+    _compare(got, want)
+    if cfg.correction_enabled:
+        assert int(want["c1_count"]) + int(want["c2_count"]) > 0
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--merge", "--merged_out", "m.fq"], "item 10"),
+    (["--failed_out", "f.fq"], "item 8"),
+    (["--overlapped_out", "ov.fq"], "item 10"),
+    (["--allow_gap_overlap_trimming"], "item 11"),
+])
+def test_step_rejects_configs_outside_the_slice(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        t_device.build_pe_step(_cfg(flags), "cpu")
