@@ -7,12 +7,20 @@ Phases, in order; each prints one line, and any failure exits non-zero:
   2. build    -- builds the overlap kernel from fastp_tpu_torch/csrc
   3. kernel   -- the CUDA overlap kernel against its plain PyTorch version
                  at B=8192, L=160 on bench-like and adversarial rows
-                 (exact), with CUDA-event timings of both
-  4. golden   -- `python -m fastp_tpu_torch` on the cfg3 golden inputs
+                 (exact) at three overlap settings, diff_pct = 0 (the
+                 --overlapped_out re-analysis) among them, with CUDA-event
+                 timings of both
+  4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
+                 (single-end), cfg3, cfg6 (--failed_out, unpaired), cfg7
+                 (split) and cfg8 (--failed_out, --overlapped_out): every
+                 FASTQ file of each golden and fastp.json
   5. main     -- a 1,000,000-pair PE151 corpus through cli.run with the
                  bench flags; the kernel must launch once per batch or more
-  6. cpu      -- the first 20,000 pairs on the card and on the CPU give
-                 identical FASTQ and JSON
+  6. se       -- R1 of that corpus as single-end input with cfg1's flags
+  7. failed   -- the corpus with cfg8's flags; the kernel must launch at
+                 least twice per batch and every output stream is non-empty
+  8. cpu      -- the first 20,000 pairs (reads) of phases 5, 6 and 7 on the
+                 card and on the CPU give identical output files
 Then a JSON line of the kernel results and, last, the device line.
 The script imports no JAX.
 """
@@ -41,12 +49,31 @@ from fastp_tpu_torch.ops.overlap import sweep_select_plain  # noqa: E402
 BENCH_FLAGS = ["--correction", "--cut_right",
                "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
                "--adapter_sequence_r2", "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"]
-GOLDEN = os.path.join(ROOT, "tests", "golden", "cfg3_pe_correction")
+CFG8_FLAGS = ["--correction", "--cut_right", "--failed_out", "failed.fq",
+              "--unpaired1", "up1.fq", "--overlapped_out", "ov.fq",
+              "-l", "100"]
+GOLDENS = os.path.join(ROOT, "tests", "golden")
 TESTDATA = os.path.join(ROOT, "tests", "testdata")
+PE_IN = ["-i", os.path.join(TESTDATA, "R1.fq"), "-I", os.path.join(TESTDATA, "R2.fq")]
+# golden directory -> the port's arguments (tests/test_parity.py's runs)
+GOLDEN_RUNS = {
+    "cfg1_se_default": ["-i", os.path.join(TESTDATA, "R1.fq"), "-o", "out.fq"],
+    "cfg3_pe_correction": PE_IN + ["-o", "out1.fq", "-O", "out2.fq",
+                                   "--correction", "--cut_right"],
+    "cfg6_failed": PE_IN + ["-o", "out1.fq", "-O", "out2.fq", "--failed_out",
+                            "failed.fq", "--unpaired1", "up1.fq",
+                            "--unpaired2", "up2.fq", "-l", "100"],
+    "cfg7_split": PE_IN + ["-o", "out1.fq", "-O", "out2.fq", "-s", "3",
+                           "-w", "1"],
+    "cfg8_failed_cut": PE_IN + ["-o", "o1.fq", "-O", "o2.fq"] + CFG8_FLAGS,
+}
+NOT_COMPARED = ("stderr.txt", "fastp.html")  # the log; HTML embeds argv
 B, L = 8192, 160
-# (diff_limit, overlap_require, diff_pct): the main path's setting, and a
-# looser one that accepts at other offsets
-OVERLAP_SETTINGS = ((5, 30, 0.2), (3, 10, 0.1))
+# (diff_limit, overlap_require, diff_pct): the main path's setting, a
+# looser one that accepts at other offsets, and the --overlapped_out
+# re-analysis (exact overlaps only)
+OVERLAP_SETTINGS = ((5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0))
+TIMED_SETTINGS = (OVERLAP_SETTINGS[0], OVERLAP_SETTINGS[2])
 MAIN_PAIRS = 1_000_000
 CPU_PAIRS = 20_000
 
@@ -65,14 +92,19 @@ def normalize_json(text):
 
 
 def same_outputs(dir_a, dir_b, what):
-    for f in ("out1.fq", "out2.fq"):
-        with open(os.path.join(dir_a, f), "rb") as fa, \
-                open(os.path.join(dir_b, f), "rb") as fb:
-            check(fa.read() == fb.read(), "%s: %s differs" % (what, f))
-    with open(os.path.join(dir_a, "fastp.json")) as fa, \
-            open(os.path.join(dir_b, "fastp.json")) as fb:
-        check(normalize_json(fa.read()) == normalize_json(fb.read()),
-              "%s: fastp.json differs" % what)
+    """Every output file of dir_b is in dir_a with the same bytes (JSON
+    after the command-line normalisation); returns the names compared."""
+    files = sorted(f for f in os.listdir(dir_b) if f not in NOT_COMPARED)
+    check("fastp.json" in files, "%s: no fastp.json in %s" % (what, dir_b))
+    for f in files:
+        path_a = os.path.join(dir_a, f)
+        check(os.path.exists(path_a), "%s: %s is missing" % (what, f))
+        with open(path_a, "rb") as fa, open(os.path.join(dir_b, f), "rb") as fb:
+            a, b = fa.read(), fb.read()
+        if f.endswith(".json"):
+            a, b = normalize_json(a.decode()), normalize_json(b.decode())
+        check(a == b, "%s: %s differs" % (what, f))
+    return files
 
 
 def port_cmd(*args):
@@ -180,8 +212,8 @@ def phase_kernel():
     rng = np.random.default_rng(42)
     worst = 0
     rows = 0
-    accepted = 0
-    timing = None
+    accepted = {}
+    timing = {}
     for name, rows_np in (("bench", _bench_rows(rng)),
                           ("adversarial", _adversarial_rows(rng))):
         s1, r2, l1, l2 = (torch.from_numpy(x).cuda() for x in rows_np)
@@ -196,33 +228,47 @@ def phase_kernel():
                 check(err == 0, "kernel %s/%s differs from plain (max abs "
                       "err %d) at setting %s" % (name, key, err, (dl, req, pct)))
             rows += B
-            accepted += int(got[0].sum())
-            if name == "bench" and (dl, req, pct) == OVERLAP_SETTINGS[0]:
-                timing = (
+            accepted[pct] = accepted.get(pct, 0) + int(got[0].sum())
+            if name == "bench" and (dl, req, pct) in TIMED_SETTINGS:
+                timing[pct] = (
                     _median_ms(lambda: overlap_cuda.sweep_select(
                         s1, r2, l1, l2, dl, req, pct)),
                     _median_ms(lambda: sweep_select_plain(
                         s1, r2, l1, l2, dl, req, pct)))
-    print("phase kernel: overlap_sweep == plain on %d rows (%d accepted), "
-          "max abs err %d; B=%d L=%d kernel %.4f ms, plain %.4f ms "
-          "(CUDA events, median of 25)"
-          % (rows, accepted, worst, B, L, timing[0], timing[1]), flush=True)
+    check(all(accepted[pct] > 0 for _, _, pct in OVERLAP_SETTINGS),
+          "a setting accepted no row: %s" % accepted)
+    print("phase kernel: overlap_sweep == plain on %d rows (accepted by "
+          "diff_pct: %s), max abs err %d; B=%d L=%d, CUDA events, median of "
+          "25: %s"
+          % (rows, accepted, worst, B, L, "; ".join(
+              "diff_pct %s kernel %.4f ms, plain %.4f ms" % (pct, k, p)
+              for pct, (k, p) in timing.items())), flush=True)
     return worst, timing
 
 
 def phase_golden(work):
-    d = os.path.join(work, "golden")
-    os.makedirs(d)
-    res = subprocess.run(
-        port_cmd("-i", os.path.join(TESTDATA, "R1.fq"),
-                 "-I", os.path.join(TESTDATA, "R2.fq"),
-                 "-o", "out1.fq", "-O", "out2.fq", "--correction", "--cut_right"),
-        cwd=d, env=port_env(), capture_output=True, text=True)
-    check(res.returncode == 0, "golden run failed:\n" + res.stderr[-3000:])
-    check("running on cuda" in res.stderr, "golden run did not use CUDA")
-    same_outputs(d, GOLDEN, "golden")
-    print("phase golden: cfg3 out1.fq, out2.fq and fastp.json match "
-          "tests/golden/cfg3_pe_correction on the card", flush=True)
+    """All goldens at once: one port process each, started together."""
+    procs = {}
+    for name, args in GOLDEN_RUNS.items():
+        d = os.path.join(work, "golden", name)
+        os.makedirs(d)
+        log = open(os.path.join(d, "stderr.log"), "w+")
+        procs[name] = (d, log, subprocess.Popen(
+            port_cmd(*args), cwd=d, env=port_env(), stdout=subprocess.DEVNULL,
+            stderr=log, text=True))
+    compared = []
+    for name, (d, log, proc) in procs.items():
+        rc = proc.wait()
+        log.seek(0)
+        err = log.read()
+        log.close()
+        os.remove(os.path.join(d, "stderr.log"))
+        check(rc == 0, "golden %s failed:\n%s" % (name, err[-3000:]))
+        check("running on cuda" in err, "golden %s did not use CUDA" % name)
+        files = same_outputs(d, os.path.join(GOLDENS, name), "golden " + name)
+        compared.append("%s (%s)" % (name, ", ".join(files)))
+    print("phase golden: on the card, byte-equal to tests/golden: %s"
+          % "; ".join(compared), flush=True)
 
 
 def _make_corpus(work):
@@ -248,29 +294,48 @@ def _run_in_process(argv, cwd):
     return res, log.getvalue()
 
 
-def phase_main(work, r1, r2):
-    d = os.path.join(work, "main")
+def _drive(work, name, args):
+    """One path at full size through cli.run on the card, with the kernel
+    counts set to 0 just before and read just after.  Returns (result,
+    run directory, wall seconds, overlap kernel launches)."""
+    d = os.path.join(work, name)
     os.makedirs(d)
-    argv = ["fastp_tpu_torch", "-i", r1, "-I", r2, "-o", "out1.fq",
-            "-O", "out2.fq", *BENCH_FLAGS]
     overlap_cuda.sweep_select.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, log = _run_in_process(argv, d)
+    res, log = _run_in_process(["fastp_tpu_torch", *args], d)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = overlap_cuda.sweep_select.launches
+    check("running on cuda" in log, "%s run log does not show the CUDA "
+          "device" % name)
+    return res, d, wall, launches
+
+
+def _nonempty_outputs(d, what):
+    files = sorted(f for f in os.listdir(d) if f.endswith(".fq"))
+    for f in files:
+        check(os.path.getsize(os.path.join(d, f)) > 0,
+              "%s run wrote empty %s" % (what, f))
+    return files
+
+
+def _reads_after(d):
+    with open(os.path.join(d, "fastp.json")) as fh:
+        return json.load(fh)["summary"]["after_filtering"]["total_reads"]
+
+
+def phase_main(work, r1, r2):
+    res, d, wall, launches = _drive(
+        work, "main", ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
+                       *BENCH_FLAGS])
     batches = res["batches"]
     reads = res["pre1"].reads
-    check("running on cuda" in log, "main run log does not show the CUDA device")
     check(reads == MAIN_PAIRS, "main run read %d pairs" % reads)
     check(launches >= batches > 0,
           "overlap kernel launched %d times for %d batches" % (launches, batches))
-    for f in ("out1.fq", "out2.fq"):
-        check(os.path.getsize(os.path.join(d, f)) > 0, "main run wrote empty " + f)
-    with open(os.path.join(d, "fastp.json")) as fh:
-        summary = json.load(fh)["summary"]
-    after = summary["after_filtering"]["total_reads"]
+    _nonempty_outputs(d, "main")
+    after = _reads_after(d)
     check(0 < after <= 2 * MAIN_PAIRS, "main run kept %d reads" % after)
     print("phase main: %d pairs (bench flags, --batch_size 8192) in %.3f s "
           "wall = %.0f pairs/s; %d batches, %d overlap kernel launches; "
@@ -279,43 +344,105 @@ def phase_main(work, r1, r2):
     return launches
 
 
+def phase_se(work, r1):
+    res, d, wall, launches = _drive(work, "se", ["-i", r1, "-o", "out.fq"])
+    reads = res["pre"].reads
+    check(reads == MAIN_PAIRS, "se run read %d reads" % reads)
+    check(launches == 0, "the SE path launched the overlap kernel")
+    _nonempty_outputs(d, "se")
+    after = _reads_after(d)
+    check(0 < after <= MAIN_PAIRS, "se run kept %d reads" % after)
+    print("phase se: %d single-end reads (cfg1 flags: adapter detection, "
+          "quality and length filters) in %.3f s wall = %.0f reads/s; "
+          "%d batches, %d reads after filtering"
+          % (reads, wall, reads / wall, res["batches"], after), flush=True)
+    return launches
+
+
+def phase_failed(work, r1, r2):
+    res, d, wall, launches = _drive(
+        work, "failed", ["-i", r1, "-I", r2, "-o", "o1.fq", "-O", "o2.fq",
+                         *CFG8_FLAGS])
+    batches = res["batches"]
+    reads = res["pre1"].reads
+    check(reads == MAIN_PAIRS, "failed run read %d pairs" % reads)
+    check(launches >= 2 * batches > 0,
+          "overlap kernel launched %d times for %d batches (want twice per "
+          "batch: the analysis and the --overlapped_out re-analysis)"
+          % (launches, batches))
+    files = _nonempty_outputs(d, "failed")
+    check(files == ["failed.fq", "o1.fq", "o2.fq", "ov.fq", "up1.fq"],
+          "failed run wrote %s" % files)
+    print("phase failed: %d pairs (cfg8 flags) in %.3f s wall = %.0f pairs/s; "
+          "%d batches, %d overlap kernel launches (%.2f per batch); every "
+          "stream non-empty: %s"
+          % (reads, wall, reads / wall, batches, launches, launches / batches,
+             ", ".join("%s %d B" % (f, os.path.getsize(os.path.join(d, f)))
+                       for f in files)), flush=True)
+    return launches
+
+
 def phase_cpu(work, r1, r2):
-    args = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
-            "--reads_to_process", str(CPU_PAIRS), *BENCH_FLAGS]
-    gpu_dir = os.path.join(work, "cmp_gpu")
-    cpu_dir = os.path.join(work, "cmp_cpu")
-    os.makedirs(gpu_dir)
-    os.makedirs(cpu_dir)
-    _, log = _run_in_process(["fastp_tpu_torch", *args], gpu_dir)
-    check("running on cuda" in log, "card run did not use CUDA")
-    res = subprocess.run(port_cmd(*args), cwd=cpu_dir,
-                         env=port_env(CUDA_VISIBLE_DEVICES=""),
-                         capture_output=True, text=True)
-    check(res.returncode == 0, "cpu run failed:\n" + res.stderr[-3000:])
-    check("running on cpu" in res.stderr, "cpu run did not run on the CPU")
-    same_outputs(gpu_dir, cpu_dir, "card vs cpu")
-    print("phase cpu: first %d pairs give identical out1.fq, out2.fq and "
-          "fastp.json on the card and on the CPU" % CPU_PAIRS, flush=True)
+    """The first CPU_PAIRS of each path on the CPU (three processes, started
+    together) and on the card, compared file by file."""
+    prefix = ["--reads_to_process", str(CPU_PAIRS)]
+    paths = {
+        "main": ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
+                 *BENCH_FLAGS],
+        "se": ["-i", r1, "-o", "out.fq"],
+        "failed": ["-i", r1, "-I", r2, "-o", "o1.fq", "-O", "o2.fq",
+                   *CFG8_FLAGS],
+    }
+    procs = {}
+    for name, args in paths.items():
+        cpu_dir = os.path.join(work, "cmp_cpu_" + name)
+        os.makedirs(cpu_dir)
+        procs[name] = (cpu_dir, subprocess.Popen(
+            port_cmd(*args, *prefix), cwd=cpu_dir,
+            env=port_env(CUDA_VISIBLE_DEVICES=""), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True))
+    compared = []
+    for name, args in paths.items():
+        gpu_dir = os.path.join(work, "cmp_gpu_" + name)
+        os.makedirs(gpu_dir)
+        _, log = _run_in_process(["fastp_tpu_torch", *args, *prefix], gpu_dir)
+        check("running on cuda" in log, "card run %s did not use CUDA" % name)
+    for name, (cpu_dir, proc) in procs.items():
+        _, err = proc.communicate()
+        check(proc.returncode == 0, "cpu run %s failed:\n%s"
+              % (name, err[-3000:]))
+        check("running on cpu" in err, "cpu run %s did not run on the CPU" % name)
+        files = same_outputs(os.path.join(work, "cmp_gpu_" + name), cpu_dir,
+                             "card vs cpu, " + name)
+        compared.append("%s (%s)" % (name, ", ".join(files)))
+    print("phase cpu: the first %d pairs (reads) give identical files on the "
+          "card and on the CPU: %s" % (CPU_PAIRS, "; ".join(compared)),
+          flush=True)
 
 
 def main():
     card = phase_device()
     phase_build()
-    worst, (kernel_ms, plain_ms) = phase_kernel()
+    worst, timing = phase_kernel()
     os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
         phase_golden(work)
         r1, r2 = _make_corpus(work)
-        launches = phase_main(work, r1, r2)
+        launches = {"main": phase_main(work, r1, r2),
+                    "se": phase_se(work, r1),
+                    "failed": phase_failed(work, r1, r2)}
         phase_cpu(work, r1, r2)
     shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
+    kernel_ms, plain_ms = timing[OVERLAP_SETTINGS[0][2]]
+    zero_ms, zero_plain_ms = timing[0.0]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",
         "source": "fastp_tpu_torch/csrc/overlap_sweep.cu",
         "replaces": "fastp_tpu/ops/overlap_pallas.py:26",
-        "launches": launches, "max_abs_err": worst,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "launches": launches["main"], "launches_per_path": launches,
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+        "ms_diff_pct_0": zero_ms, "plain_ms_diff_pct_0": zero_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

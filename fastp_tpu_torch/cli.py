@@ -2,8 +2,9 @@
 
 Follows fastp_tpu/cli.py:main with the same parser, options, early input
 check, evaluator pre-pass (sequence length, adapter detection, validation,
-the two-colour polyG switch) and report lines on stderr.  The device is
-CUDA when torch sees a card, else the CPU; the run names it on stderr.
+the split size, the two-colour polyG switch), the choice of the SE or PE
+processor and the report lines on stderr.  The device is CUDA when torch
+sees a card, else the CPU; the run names it on stderr.
 """
 from __future__ import annotations
 
@@ -50,8 +51,6 @@ def prepare_options(argv):
     if args.devices > 1:
         _not_ported("--devices > 1", 13)
     opt = options_from_args(args, argv)
-    if not opt.isPaired():
-        _not_ported("single-end input", 7)
     if opt.inputFromSTDIN or opt.in1 == "/dev/stdin":
         _not_ported("--stdin", 11)
 
@@ -62,12 +61,13 @@ def prepare_options(argv):
     eva.evaluate_seq_len()
     if opt.overRepAnalysis.enabled:
         eva.evaluate_overrep_seqs()
+    read_num = 0
     for is_r2 in (False, True):
         if not opt.shallDetectAdapter(is_r2):
             continue
         read = "read2" if is_r2 else "read1"
         sys.stderr.write("Detecting adapter sequence for %s...\n" % read)
-        adapt, _ = eva.eval_adapter_and_read_num(is_r2)
+        adapt, read_num = eva.eval_adapter_and_read_num(is_r2)
         if len(adapt) > 60:
             adapt = ""  # reference quirk: resize(0, 60) empties >60bp detections
         if adapt:
@@ -86,6 +86,14 @@ def prepare_options(argv):
         sys.stderr.write("\n")
     # reference order: validate runs after adapter detection (main.cpp:485)
     opt.validate()
+    if opt.split.needEvaluation:
+        if read_num == 0:
+            read_num = eva.evaluate_read_num()
+        opt.split.size = read_num // opt.split.number
+        if opt.split.size <= 0:
+            opt.split.size = 1
+            sys.stderr.write("WARNING: the input file has less reads than "
+                             "the number of files to split\n")
     if (not args.trim_poly_g and not args.disable_trim_poly_g
             and eva.is_two_color_system()):
         opt.polyGTrim.enabled = True
@@ -96,11 +104,13 @@ def run(argv) -> dict:
     """Run one job; returns the processor's result dict (stats, filter
     result, and the number of batches)."""
     from .pipeline.pe_runner import PairEndProcessor
+    from .pipeline.runner import SingleEndProcessor
     device = default_device()
     t1 = time.time()
     opt = prepare_options(argv)
     sys.stderr.write("fastp_tpu_torch: running on %s\n" % describe_device(device))
-    res = PairEndProcessor(opt, device).process()
+    processor = PairEndProcessor if opt.isPaired() else SingleEndProcessor
+    res = processor(opt, device).process()
     sys.stderr.write("\nJSON report: %s\n" % opt.jsonFile)
     sys.stderr.write("HTML report: %s\n" % opt.htmlFile)
     sys.stderr.write("\n%s\n" % opt.command)

@@ -1,8 +1,10 @@
 """Paired-end streaming processor (reference: src/peprocessor.cpp:361-711).
 
-Counterpart of fastp_tpu/pipeline/pe_runner.py for the lean, unmerged PE
-path.  The batch loop is synchronous: read -> host pre-ops -> torch step
-(outputs copied to numpy) -> route_pe (reused from fastp_tpu) -> writers.
+Counterpart of fastp_tpu/pipeline/pe_runner.py for the unmerged PE path,
+lean or not.  The batch loop is synchronous: read -> host pre-ops -> torch
+step (outputs copied to numpy) -> routing -> writers.  Routing is
+fastp_tpu's route_pe (reused by import) where the native library loaded,
+else the per-row loop below, as in fastp_tpu.
 """
 from __future__ import annotations
 
@@ -11,19 +13,24 @@ from typing import Dict
 
 import numpy as np
 
-from fastp_tpu.config import Options
+from fastp_tpu.config import Options, FAILED_TYPES
+from fastp_tpu.io import native as native_mod
 from fastp_tpu.io.fastq import ArrayBatch, OutputWriter, open_batch_reader
 from fastp_tpu.report.filter_model import FilterResult
 from fastp_tpu.report.htmlreport import HtmlReporter
 from fastp_tpu.report.jsonreport import JsonReporter
 from fastp_tpu.report.stats_model import Stats, cpp_num
 from fastp_tpu.utils.readname import fix_mgi
-from fastp_tpu.pipeline.hostview import host_analyze_overlap, host_correct_pair
+from fastp_tpu.pipeline.hostview import (PairWindowView, host_analyze_overlap,
+                                         host_correct_pair)
 from fastp_tpu.pipeline.pe_route import route_pe
 
 from .device import build_pe_step, make_aux
-from .runner import (BaseProcessor, _OverRepCounter, _round_width,
+from .runner import (BaseProcessor, SplitWriterSet, _OverRepCounter,
                      group_pair_slices, group_slices)
+
+# output streams of the PE path, in the order fastp_tpu writes them
+_STREAMS = ("out1", "out2", "unpaired1", "unpaired2", "failed", "overlapped")
 
 
 class _SeqView:
@@ -45,8 +52,7 @@ def _check_supported(opt: Options):
     """Options the port's PE path does not cover yet, with their ROADMAP item
     (the step itself rejects the device-side configs)."""
     for on, what in ((opt.interleavedInput, "--interleaved_in (item 11)"),
-                     (opt.outputToSTDOUT, "--stdout (item 11)"),
-                     (opt.split.enabled, "--split / --split_by_lines (item 8)")):
+                     (opt.outputToSTDOUT, "--stdout (item 11)")):
         if on:
             raise NotImplementedError(
                 "fastp_tpu_torch does not support %s yet (ROADMAP Queue 1)"
@@ -75,14 +81,21 @@ class PairEndProcessor(BaseProcessor):
         reader1 = open_batch_reader(opt.in1, opt.phred64)
         reader2 = open_batch_reader(opt.in2, opt.phred64)
         writers = {}
-        for key, path in (("out1", opt.out1), ("out2", opt.out2),
-                          ("unpaired1", opt.unpaired1)):
-            if path:
-                writers[key] = OutputWriter(path, opt.compression,
-                                            buffer_size=opt.writerBufferSize)
-        if opt.unpaired2 and opt.unpaired2 != opt.unpaired1:
-            writers["unpaired2"] = OutputWriter(opt.unpaired2, opt.compression,
+        split = None
+        if opt.split.enabled:
+            split = SplitWriterSet(opt, paired=True)
+        else:
+            for key, path in (("out1", opt.out1), ("out2", opt.out2),
+                              ("unpaired1", opt.unpaired1),
+                              ("failed", opt.failedOut),
+                              ("overlapped", opt.overlappedOut)):
+                if path:
+                    writers[key] = OutputWriter(path, opt.compression,
                                                 buffer_size=opt.writerBufferSize)
+            if opt.unpaired2 and opt.unpaired2 != opt.unpaired1:
+                writers["unpaired2"] = OutputWriter(
+                    opt.unpaired2, opt.compression,
+                    buffer_size=opt.writerBufferSize)
         pairs_seen = 0
         last_reported = 0
         while True:
@@ -95,11 +108,17 @@ class PairEndProcessor(BaseProcessor):
             batch2 = reader2.read_batch(n, self.width)
             if batch1 is None or batch2 is None:
                 break
-            parts = self._process_batch(batch1, batch2, pairs_seen)
-            for key, blob in parts.items():
-                if key in writers and blob:
-                    writers[key].write(blob)
-            pairs_seen += batch1.n
+            parts, read_passed, B = self._process_batch(batch1, batch2,
+                                                        pairs_seen)
+            if split is not None:
+                split.write1(parts.get("out1", b""),
+                             read_passed if opt.split.byFileLines else B,
+                             parts.get("out2", b""))
+            else:
+                for key in _STREAMS:
+                    if key in writers and parts.get(key):
+                        writers[key].write(parts[key])
+            pairs_seen += B
             self.batches += 1
             if opt.verbose and pairs_seen >= last_reported + 1000000:
                 from fastp_tpu.utils.log import loginfo
@@ -113,12 +132,14 @@ class PairEndProcessor(BaseProcessor):
         reader2.close()
         for wtr in writers.values():
             wtr.close()
+        if split is not None:
+            split.close()
         return self._finish()
 
     def _process_batch(self, batch1: ArrayBatch, batch2: ArrayBatch,
-                       pairs_seen: int) -> Dict[str, bytes]:
+                       pairs_seen: int):
         """Run one batch through the host pre-ops, the step and the routing;
-        returns the output blobs by stream."""
+        returns ({stream: FASTQ bytes}, pairs passed, pairs in the batch)."""
         opt = self.opt
         if batch1.n != batch2.n:
             sys.stderr.write("\nWARNNIG: different read numbers of the input files\n"
@@ -181,11 +202,19 @@ class PairEndProcessor(BaseProcessor):
         if opt.correction.enabled:
             self.filter_result.add_correction_matrix(out["corr_matrix"])
             self.filter_result.inc_corrected_reads(int(out["corrected_reads"]))
-        self.filter_result.filter_read_stats += \
-            out["result_hist"].astype(np.int64)
+        if "result_hist" in out:
+            # lean: the device histogram replaces the per-row counting
+            self.filter_result.filter_read_stats += \
+                out["result_hist"].astype(np.int64)
 
+        view = PairWindowView(_SeqView(batch1), _SeqView(batch1, True),
+                              _SeqView(batch2), _SeqView(batch2, True),
+                              out, opt.correction.enabled, batch1.width,
+                              ov_params=(opt.overlapDiffLimit,
+                                         opt.overlapRequire,
+                                         opt.overlapDiffPercentLimit / 100.0))
         if opt.adapter.enabled:
-            self._record_adapters(out, batch1, batch2)
+            self._record_adapters(out, batch1, batch2, view)
 
         if self.overrep_pre1.enabled:
             samp = self.overrep_pre1.sampling
@@ -194,21 +223,112 @@ class PairEndProcessor(BaseProcessor):
             self.overrep_pre1.stat_rows(batch1.bases, zeros, batch1.lengths, rows)
             self.overrep_pre2.stat_rows(batch2.bases, zeros, batch2.lengths, rows)
 
-        parts, _, _ = route_pe(self, out, batch1, batch2, B, index_drop,
-                               pre_trim1, pre_trim2, dedup_out)
-        return parts
+        if native_mod.get_lib() is not None:
+            parts, read_passed, _ = route_pe(self, out, batch1, batch2, B,
+                                             index_drop, pre_trim1, pre_trim2,
+                                             dedup_out)
+        else:
+            parts, read_passed = self._route_rows(
+                out, view, batch1, batch2, B, index_drop, pre_trim1,
+                pre_trim2, dedup_out)
+        return parts, read_passed, B
 
-    def _record_adapters(self, out, batch1: ArrayBatch, batch2: ArrayBatch):
+    def _route_rows(self, out, view: PairWindowView, batch1: ArrayBatch,
+                    batch2: ArrayBatch, B: int, index_drop, pre_trim1,
+                    pre_trim2, dedup_out):
+        """Per-row routing where the native library is missing (the
+        fallback loop of fastp_tpu/pipeline/pe_runner.py:443-594, without
+        merge and stdout).  Corrections come from the window view, not
+        from patched arrays.  Returns ({stream: bytes}, pairs passed)."""
+        opt = self.opt
+        parts = {k: [] for k in _STREAMS}
+        rlen1, rlen2 = out["rlen1"], out["rlen2"]
+        result1, result2 = out["result1"], out["result2"]
+        pass1, pass2 = out["pass1"], out["pass2"]
+        read_passed = 0
+
+        def record(key, batch, i, win):
+            seq, qual = win
+            parts[key] += [batch.name(i), b"\n", seq, b"\n",
+                           batch.strand(i), b"\n", qual, b"\n"]
+
+        if opt.overlappedOut:
+            for i in np.flatnonzero(out["ov0_ok"][:B]):
+                off = max(0, int(out["ov0_offset"][i]))
+                ol = int(out["ov0_len"][i])
+                # reference quirk (src/peprocessor.cpp:464): the
+                # string(str, pos) ctor keeps the portion AFTER the overlap
+                s1w, q1w = view.r1(i, int(rlen1[i]))
+                record("overlapped", batch1, i, (s1w[off:][ol:], q1w[off:][ol:]))
+
+        up2 = opt.unpaired2 and opt.unpaired2 != opt.unpaired1
+        for i in range(B):
+            if index_drop[i]:
+                continue
+            self.filter_result.add_filter_result(
+                max(int(result1[i]), int(result2[i])), 2)
+            if dedup_out[i]:
+                continue
+            if pass1[i] and pass2[i]:
+                s1, qq1 = view.r1(i, int(rlen1[i]))
+                s2, qq2 = view.r2(i, int(rlen2[i]))
+                record("out1", batch1, i, (s1, qq1))
+                record("out2", batch2, i, (s2, qq2))
+                if self.overrep_post1.enabled:
+                    self.overrep_post1.stat_read(s1, read_passed)
+                    self.overrep_post2.stat_read(s2, read_passed)
+                read_passed += 1
+            elif pass1[i]:
+                fail2 = (view.r2(i, int(rlen2[i]))
+                         if out["alive2"][i] else None)
+                if opt.unpaired1:
+                    record("unpaired1", batch1, i, view.r1(i, int(rlen1[i])))
+                elif opt.failedOut:
+                    self._failed_row(parts, batch1, i, pre_trim1[i],
+                                     "paired_read_is_failing",
+                                     win=view.r1(i, int(rlen1[i])))
+                if opt.failedOut:
+                    self._failed_row(parts, batch2, i, pre_trim2[i],
+                                     FAILED_TYPES[int(result2[i])], win=fail2)
+            elif pass2[i]:
+                fail1 = (view.r1(i, int(rlen1[i]))
+                         if out["alive1"][i] else None)
+                target = ("unpaired2" if up2
+                          else "unpaired1" if opt.unpaired1 else None)
+                if target:
+                    record(target, batch2, i, view.r2(i, int(rlen2[i])))
+                if opt.failedOut:
+                    self._failed_row(parts, batch1, i, pre_trim1[i],
+                                     FAILED_TYPES[int(result1[i])], win=fail1)
+                    if not target:
+                        self._failed_row(parts, batch2, i, pre_trim2[i],
+                                         "paired_read_is_failing",
+                                         win=view.r2(i, int(rlen2[i])))
+            # both-fail pairs write NOTHING to --failed_out
+            # (no such branch in src/peprocessor.cpp:551-577)
+        return {k: b"".join(v) for k, v in parts.items() if v}, read_passed
+
+    @staticmethod
+    def _failed_row(parts, batch: ArrayBatch, i: int, pre_trim, tag,
+                    win=None):
+        """win = (seq, qual) processed-window bytes for a read that survived
+        trimming (the reference mutates the Read in place, so failed output
+        shows the processed content); None = trim-killed, pristine bytes."""
+        if win is not None:
+            seq, qual = win
+        else:
+            p0 = int(pre_trim)
+            ln = int(batch.lengths[i])
+            seq = batch.bases[i, p0:ln].tobytes()
+            qual = batch.quals[i, p0:ln].tobytes()
+        parts["failed"] += [batch.name(i) + b" " + tag.encode(), b"\n", seq,
+                            b"\n", batch.strand(i), b"\n", qual, b"\n"]
+
+    def _record_adapters(self, out, batch1: ArrayBatch, batch2: ArrayBatch,
+                         view: PairWindowView):
         """Adapter recording (FilterResult::addAdapterTrimmed) in row order:
         overlap-clipped pairs, then by-sequence hits per mate."""
-        from fastp_tpu.pipeline.hostview import PairWindowView
         opt = self.opt
-        view = PairWindowView(_SeqView(batch1), _SeqView(batch1, True),
-                              _SeqView(batch2), _SeqView(batch2, True),
-                              out, opt.correction.enabled, batch1.width,
-                              ov_params=(opt.overlapDiffLimit,
-                                         opt.overlapRequire,
-                                         opt.overlapDiffPercentLimit / 100.0))
         # corrections never land in the overlap-clipped region, so
         # ov-trimmed adapters slice the raw arrays; rows with corrections
         # use the correction-aware view for the by-sequence case
@@ -315,9 +435,14 @@ class PairEndProcessor(BaseProcessor):
     def _host_correct_all(self, batch1: ArrayBatch, batch2: ArrayBatch,
                           out, B: int):
         """Exact host recomputation of every correctable row (sparse-list
-        overflow path): the overlap is re-derived per row on the host from
-        the exact device window, then corrected."""
-        do = out["corr_able"][:B]
+        overflow path).  A lean step ships only the corr_able bit, and the
+        overlap is then re-derived per row on the host from the exact
+        device window."""
+        if "ov_ok" in out:
+            do = (out["ov_ok"][:B] & ~out["ov_hasgap"][:B]
+                  & (out["ov_diff"][:B] != 0))
+        else:
+            do = out["corr_able"][:B]
         opt = self.opt
         ovp = (opt.overlapDiffLimit, opt.overlapRequire,
                opt.overlapDiffPercentLimit / 100.0)
@@ -331,10 +456,13 @@ class PairEndProcessor(BaseProcessor):
             qq1 = bytearray(q1[i, s01:e1].tobytes())
             s2 = bytearray(b2[i, s02:e2].tobytes())
             qq2 = bytearray(q2[i, s02:e2].tobytes())
-            p1 = int(out["rlen1_pre_ovtrim"][i])
             p2 = int(out["rlen2_pre_ovtrim"][i])
-            _, off, ol, _ = host_analyze_overlap(
-                b1[i, s01:s01 + p1], b2[i, s02:s02 + p2], *ovp)
+            if "ov_offset" in out:
+                off, ol = int(out["ov_offset"][i]), int(out["ov_olen"][i])
+            else:
+                p1 = int(out["rlen1_pre_ovtrim"][i])
+                _, off, ol, _ = host_analyze_overlap(
+                    b1[i, s01:s01 + p1], b2[i, s02:s02 + p2], *ovp)
             host_correct_pair(s1, qq1, s2, qq2, p2, off, ol)
             b1[i, s01:e1] = np.frombuffer(bytes(s1), np.uint8)
             q1[i, s01:e1] = np.frombuffer(bytes(qq1), np.uint8)

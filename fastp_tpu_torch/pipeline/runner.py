@@ -1,25 +1,34 @@
-"""Host-side helpers of the streaming processors, free of JAX.
+"""Streaming SE processor and the host helpers both processors share.
 
-JAX-free copies of what the PE path uses from fastp_tpu/pipeline/runner.py
-(that module imports the JAX step at import time): width rounding, the
-index blacklist match, grouped adapter-slice recording, the
-overrepresented-sequence counter, and a BaseProcessor that keeps the host
-state, batch padding and the index-drop masks.  The JAX staging, fetch
-pools, on-device accumulator and input packers are not carried over.
+JAX-free copies of fastp_tpu/pipeline/runner.py (that module imports the
+JAX step at import time): width rounding, the index blacklist match,
+grouped adapter-slice recording, the overrepresented-sequence counter, a
+BaseProcessor that keeps the host state, batch padding, the index-drop
+masks and the stat printers, the single-end processor and the split-output
+writer set.  The JAX staging, fetch pools, on-device accumulator and input
+packers are not carried over: the batch loop is synchronous.
 """
 from __future__ import annotations
 
+import os
 import sys
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
-from fastp_tpu.config import Options, PASS_FILTER
+from fastp_tpu.config import Options, PASS_FILTER, FAILED_TYPES
 from fastp_tpu.duplicate import Duplicate
+from fastp_tpu.io import native as native_mod
+from fastp_tpu.io.fastq import OutputWriter, open_batch_reader
+from fastp_tpu.report.filter_model import FilterResult
+from fastp_tpu.report.htmlreport import HtmlReporter
+from fastp_tpu.report.jsonreport import JsonReporter
 from fastp_tpu.report.stats_model import Stats, cpp_num
 from fastp_tpu.umi import UmiProcessor
-from fastp_tpu.utils.readname import first_index, last_index
+from fastp_tpu.utils.readname import first_index, fix_mgi, last_index
 from fastp_tpu.pipeline.static_cfg import device_cfg_from_options
+
+from .device import build_se_step, make_aux
 
 
 def _round_width(n: int) -> int:
@@ -152,6 +161,18 @@ class _OverRepCounter:
                         dist[p] += 1
                     i += step
                 i += 1
+
+    def stat_read(self, seq: bytes, read_index: int):
+        if not self.enabled or read_index % self.sampling != 0:
+            return
+        if self._h is not None:
+            b = np.frombuffer(seq, np.uint8).reshape(1, -1)
+            self._lib.ora_stat_batch(
+                self._h, np.ascontiguousarray(b), b.shape[1],
+                np.zeros(1, np.int32), np.array([len(seq)], np.int32),
+                np.zeros(1, np.int32), 1, self._counts, self._dist)
+        else:
+            self._scan(seq)
 
     def stat_rows(self, bases: np.ndarray, start, rlen, rows: np.ndarray):
         """Scan the selected (already sampled) rows of a padded batch."""
@@ -312,3 +333,323 @@ class BaseProcessor:
         if opt.correction.enabled:
             w("reads corrected by overlap analysis: %d\n" % fr.corrected_reads)
             w("bases corrected by overlap analysis: %d\n" % fr.get_total_corrected_bases())
+
+
+class SingleEndProcessor(BaseProcessor):
+    """reference: src/seprocessor.cpp:196-315"""
+
+    def __init__(self, opt: Options, device):
+        super().__init__(opt, device)
+        self.step = build_se_step(self.cfg, device)
+        self.pre_stats = Stats(opt, False, self.width)
+        self.post_stats = Stats(opt, False, self.width)
+        self.filter_result = FilterResult(opt, False)
+        self.overrep_pre = _OverRepCounter(self.pre_stats, opt)
+        self.overrep_post = _OverRepCounter(self.post_stats, opt)
+        self.batches = 0
+
+    def process(self) -> Dict:
+        opt = self.opt
+        reader = open_batch_reader(opt.in1, opt.phred64)
+        out_writer = failed_writer = split = None
+        if opt.split.enabled:
+            split = SplitWriterSet(opt)
+        else:
+            if opt.out1 or opt.outputToSTDOUT:
+                out_writer = OutputWriter(opt.out1, opt.compression,
+                                          opt.outputToSTDOUT,
+                                          opt.writerBufferSize)
+            if opt.failedOut:
+                failed_writer = OutputWriter(opt.failedOut, opt.compression,
+                                             buffer_size=opt.writerBufferSize)
+        reads_seen = 0
+        last_reported = 0
+        while True:
+            n = opt.batchSize
+            if opt.readsToProcess > 0:
+                n = min(n, opt.readsToProcess - reads_seen)
+                if n <= 0:
+                    break
+            batch = reader.read_batch(n, self.width)
+            if batch is None:
+                break
+            blob, failed, post_count = self._process_batch(batch, reads_seen)
+            if split is not None:
+                split.write1(blob, post_count if opt.split.byFileLines
+                             else batch.n)
+            elif out_writer is not None:
+                out_writer.write(blob)
+            if failed_writer is not None:
+                failed_writer.write(failed)
+            reads_seen += batch.n
+            self.batches += 1
+            if opt.verbose and reads_seen >= last_reported + 1000000:
+                from fastp_tpu.utils.log import loginfo
+                last_reported = reads_seen
+                loginfo("loaded %dM reads" % (reads_seen // 1000000))
+        if opt.verbose:
+            from fastp_tpu.utils.log import loginfo
+            loginfo("batch loop done (%d reads)" % reads_seen)
+        reader.close()
+        for wtr in (out_writer, failed_writer, split):
+            if wtr is not None:
+                wtr.close()
+        return self._finish()
+
+    def _process_batch(self, batch, reads_seen: int):
+        """Host pre-ops, the step, counting, adapter recording and
+        serialization of one batch.  Returns (passing reads' FASTQ,
+        --failed_out FASTQ, number of passing reads)."""
+        opt = self.opt
+        B = batch.n
+        self.width = batch.width
+        index_drop = self._index_drop_mask_batches(batch)
+        if opt.fixMGI:
+            batch.set_names([fix_mgi(nm)[0] for nm in batch.names])
+        if opt.umi.enabled:
+            res = self.umi.process_batch_arrays(batch)
+            if res is not None:
+                pre_trim = res[0]
+            else:
+                names_u, _, pre_trim, _ = self.umi.process_batch(
+                    batch.names, batch.seqs())
+                batch.set_names(names_u)
+                pre_trim = np.asarray(pre_trim, np.int32)
+        else:
+            pre_trim = np.zeros(B, np.int32)
+        bases, quals, lengths = batch.bases, batch.quals, batch.lengths
+        dedup_out = np.zeros(B, bool)
+        if self.duplicate is not None:
+            dup = self.duplicate.check_batch_se(bases, lengths)
+            if opt.duplicate.dedup:
+                dedup_out = dup
+
+        (bp, qp, lp, ptp, idxp, dedp), valid = self._pad_batch(
+            [bases, quals, lengths, pre_trim, index_drop, dedup_out], B,
+            target=opt.batchSize)
+        out = self.step(bp, qp, lp, *make_aux(self.cfg, valid, ptp, None,
+                                              idxp, dedp))
+        # lean steps drop total_front when no front trim/cut can move the
+        # window start on device: it is exactly the host pre-trim
+        out.setdefault("total_front", pre_trim)
+
+        self.pre_stats.add_batch(out["pre"])
+        self.post_stats.add_batch(out["post"])
+        self.filter_result.add_polyx_trimmed(out["polyx_reads"],
+                                             out["polyx_bases"])
+        # filter result counting (index-dropped and pad rows excluded); in
+        # lean mode the device histogram carries the same counts
+        if "result" in out:
+            self.filter_result.add_filter_result_array(
+                out["result"][:B][~index_drop], 1)
+        else:
+            self.filter_result.filter_read_stats += \
+                out["result_hist"].astype(np.int64)
+        if "ad_found" in out and out["ad_found"].any():
+            self._record_adapters(out, bases)
+
+        # overrepresentation sampling (pre on original, post on emitted)
+        if self.overrep_pre.enabled:
+            samp = self.overrep_pre.sampling
+            rows = np.arange((-reads_seen) % samp, B, samp, dtype=np.int32)
+            self.overrep_pre.stat_rows(bases, np.zeros(B, np.int32), lengths,
+                                       rows)
+        tf = out["total_front"]
+        rlen = out["rlen"]
+        emit = out["emit"][:B]
+        if native_mod.get_lib() is not None:
+            nbuf, noff, nlen = batch.name_buffers()
+            sbuf, soff, slen = batch.strand_buffers()
+            blob = native_mod.serialize(nbuf, noff, nlen, sbuf, soff, slen,
+                                        bases, quals, tf[:B], rlen[:B], emit,
+                                        batch.width)
+        else:
+            parts = []
+            for i in np.flatnonzero(emit):
+                s0 = int(tf[i])
+                s1 = s0 + int(rlen[i])
+                parts += [batch.name(i), b"\n", bases[i, s0:s1].tobytes(),
+                          b"\n", batch.strand(i), b"\n",
+                          quals[i, s0:s1].tobytes(), b"\n"]
+            blob = b"".join(parts)
+        if self.overrep_post.enabled:
+            rows = np.flatnonzero(emit)
+            sel = rows[np.arange(rows.size) % self.overrep_post.sampling == 0]
+            self.overrep_post.stat_rows(bases, tf[:B], rlen[:B],
+                                        sel.astype(np.int32))
+        failed = []
+        if opt.failedOut and not opt.split.enabled:
+            # failed reads show the processed window when they survived
+            # trimming, pristine bytes when trim killed them (the reference
+            # mutates the Read in place: src/seprocessor.cpp:273)
+            result, alive = out["result"], out["alive"]
+            for i in np.flatnonzero(~emit & ~index_drop & ~dedup_out):
+                if alive[i]:
+                    s0 = int(tf[i])
+                    s1 = s0 + int(rlen[i])
+                else:
+                    s0, s1 = int(pre_trim[i]), int(lengths[i])
+                failed += [batch.name(i) + b" "
+                           + FAILED_TYPES[int(result[i])].encode(), b"\n",
+                           bases[i, s0:s1].tobytes(), b"\n", batch.strand(i),
+                           b"\n", quals[i, s0:s1].tobytes(), b"\n"]
+        return blob, b"".join(failed), int(emit.sum())
+
+    def _record_adapters(self, out, bases: np.ndarray):
+        """Adapter recording (FilterResult::addAdapterTrimmed) in row order,
+        grouped by slice content (see group_slices)."""
+        aseq = self.cfg.adapter_seq1
+        frows = np.flatnonzero(out["ad_found"])
+        ps = out["ad_pos"][frows].astype(np.int64)
+        tfs = out["total_front"][frows].astype(np.int64)
+        entries = []  # explicit strings: (idx, str, count)
+        neg = ps < 0
+        negrows = np.flatnonzero(neg)
+        if negrows.size:  # adapter clipped at the read start
+            uniq, first, counts = np.unique(ps[negrows], return_index=True,
+                                            return_counts=True)
+            for k in range(uniq.size):
+                entries.append((int(negrows[first[k]]),
+                                aseq[:len(aseq) + int(uniq[k])].decode(),
+                                int(counts[k])))
+        nrm = np.flatnonzero(~neg)
+        lo = tfs + out["rlen_post_adapter"][frows].astype(np.int64)
+        hi = tfs + out["rlen_pre_adapter"][frows].astype(np.int64)
+        fr = self.filter_result
+        if fr._adrec is not None:
+            # normal rows stream to the native recorder in row order,
+            # interleaved with the synthesized prefixes
+            entries.sort(key=lambda t: t[0])
+            start = 0
+            for idx, s, c in entries + [(frows.size + 1, "", 0)]:
+                seg = nrm[(nrm >= start) & (nrm < idx)]
+                if seg.size:
+                    fr.add_adapter_trimmed_rows_bulk(
+                        bases, frows[seg], lo[seg], hi[seg], False)
+                if s:
+                    fr.add_adapter_trimmed(s, False, count=c)
+                start = idx
+        else:
+            if nrm.size:
+                for p0, bb, c in group_slices(bases, frows[nrm], lo[nrm],
+                                              hi[nrm]):
+                    entries.append((int(nrm[p0]), bb.decode("latin-1"), c))
+            entries.sort(key=lambda t: t[0])
+            for _, s, c in entries:
+                fr.add_adapter_trimmed(s, False, count=c)
+
+    def _finish(self) -> Dict:
+        opt = self.opt
+        self.overrep_pre.flush()
+        self.overrep_post.flush()
+        sys.stderr.write("Read1 before filtering:\n")
+        self._print_stats(self.pre_stats)
+        sys.stderr.write("\nRead1 after filtering:\n")
+        self._print_stats(self.post_stats)
+        sys.stderr.write("\nFiltering result:\n")
+        self._print_filter_result()
+        dup_rate = 0.0
+        if opt.duplicate.enabled:
+            dup_rate = self.duplicate.get_dup_rate()
+            sys.stderr.write("\nDuplication rate (may be overestimated since "
+                             "this is SE data): %s%%\n"
+                             % cpp_num(dup_rate * 100.0))
+        jr = JsonReporter(opt)
+        jr.set_dup(dup_rate)
+        jr.report(self.filter_result, self.pre_stats, self.post_stats)
+        hr = HtmlReporter(opt)
+        hr.set_dup(dup_rate)
+        hr.report(self.filter_result, self.pre_stats, self.post_stats)
+        if self.duplicate is not None:
+            self.duplicate.release()
+        return {"pre": self.pre_stats, "post": self.post_stats,
+                "filter": self.filter_result, "dup_rate": dup_rate,
+                "batches": self.batches}
+
+
+class SplitWriterSet:
+    """Split-output rotation (reference: src/threadconfig.cpp:106-157).
+
+    Emulates the reference's per-worker round-robin file numbering with
+    `thread` virtual workers: worker t owns file numbers t+1, t+1+T, ...
+    """
+
+    def __init__(self, opt: Options, paired: bool = False):
+        self.opt = opt
+        self.paired = paired
+        self.T = opt.thread
+        self.next_worker = 0
+        self.worker_split = list(range(1, self.T + 1))  # current file number per worker
+        self.worker_count = [0] * self.T
+        self._writers1 = [None] * self.T
+        self._writers2 = [None] * self.T
+        self.finished = [False] * self.T
+
+    def _filename(self, number: int, base: str) -> str:
+        num = str(number)
+        if self.opt.split.digits > 0:
+            num = num.zfill(self.opt.split.digits)
+        dirname, fname = os.path.split(base)
+        return os.path.join(dirname, "%s.%s" % (num, fname))
+
+    def _open(self, t: int):
+        opt = self.opt
+        if opt.out1:
+            self._writers1[t] = OutputWriter(
+                self._filename(self.worker_split[t], opt.out1),
+                opt.compression, buffer_size=opt.writerBufferSize)
+        if self.paired and opt.out2:
+            self._writers2[t] = OutputWriter(
+                self._filename(self.worker_split[t], opt.out2),
+                opt.compression, buffer_size=opt.writerBufferSize)
+
+    def write1(self, blob: bytes, processed: int, blob2: bytes = None):
+        t = self.next_worker
+        self.next_worker = (self.next_worker + 1) % self.T
+        if self.finished[t]:
+            return
+        if self._writers1[t] is None and self.opt.out1:
+            self._open(t)
+        if self._writers1[t] is not None:
+            self._writers1[t].write(blob)
+        if blob2 is not None and self._writers2[t] is not None:
+            self._writers2[t].write(blob2)
+        self._mark(t, processed)
+
+    def _mark(self, t: int, count: int):
+        """reference: src/threadconfig.cpp:127-147 (markProcessed): rotate
+        to the worker's next file number, except in by-file-number mode
+        when the quota is reached -- then the current (last) file keeps
+        absorbing reads, and workers beyond number%T stop consuming (their
+        reads are dropped, as the reference's stopped threads leave their
+        remaining packs unconsumed)."""
+        opt = self.opt
+        self.worker_count[t] += count
+        if self.worker_count[t] >= opt.split.size:
+            if (opt.split.byFileLines
+                    or (self.worker_split[t] - 1) + self.T < opt.split.number):
+                self.worker_count[t] = 0
+                self.worker_split[t] += self.T
+                for writers in (self._writers1, self._writers2):
+                    if writers[t]:
+                        writers[t].close()
+                        writers[t] = None
+            elif (opt.split.number % self.T > 0
+                    and t >= opt.split.number % self.T):
+                self.finished[t] = True
+
+    def close(self):
+        for writers in (self._writers1, self._writers2):
+            for w in writers:
+                if w:
+                    w.close()
+        # fill the quota with empty files (reference: threadconfig.cpp:151-157)
+        if self.opt.split.byFileNumber:
+            for num in range(1, self.opt.split.number + 1):
+                names = [self.opt.out1] if self.opt.out1 else []
+                if self.paired and self.opt.out2:
+                    names.append(self.opt.out2)
+                for base in names:
+                    f = self._filename(num, base)
+                    if not os.path.exists(f):
+                        open(f, "wb").close()

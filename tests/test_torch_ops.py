@@ -25,6 +25,7 @@ from fastp_tpu_torch.ops import overlap as t_overlap
 from fastp_tpu_torch.ops import polyx as t_polyx
 from fastp_tpu_torch.ops import stats as t_stats
 from fastp_tpu_torch.ops import trim as t_trim
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ADAPTER_R1 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 ADAPTER_R2 = b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"

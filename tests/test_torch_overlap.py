@@ -16,6 +16,7 @@ from fastp_tpu.ops.overlap_pallas import analyze_pallas
 from fastp_tpu_torch.ops import overlap as t_overlap
 from fastp_tpu_torch.ops import overlap_cuda
 from fastp_tpu_torch.ops.common import rc
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KEYS = ("overlapped", "offset", "overlap_len", "diff")
 
@@ -91,13 +92,14 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("trial,L", [(0, 96), (1, 96), (2, 160)])
-@pytest.mark.parametrize("setting", [(5, 30, 0.2), (2, 20, 0.1)])
+@pytest.mark.parametrize("setting", [(5, 30, 0.2), (2, 20, 0.1), (5, 30, 0.0)])
 def test_plain_matches_analyze_loop(trial, L, setting):
     s1, l1, s2, l2 = _corpus(trial, L=L)
     want = j_overlap._analyze_loop(s1, l1, s2, l2, *setting, False)
     got = _port(s1, l1, s2, l2, *setting)
     _same(got, want)
-    assert np.asarray(want["overlapped"]).sum() > 10
+    # diff_pct = 0 (the --overlapped_out re-analysis) accepts exact overlaps
+    assert np.asarray(want["overlapped"]).sum() > (3 if setting[2] == 0 else 10)
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -115,10 +117,10 @@ def test_plain_matches_pallas_interpret():
     _same(_port(s1, l1, s2, l2, 5, 30, 0.2), want)
 
 
-@pytest.mark.parametrize("pct", [0.2, 0.1, 0.05, 0.3])
+@pytest.mark.parametrize("pct", [0.2, 0.1, 0.05, 0.3, 0.0])
 def test_float32_limit_table(pct):
     """limit = min(diff_limit, int(float32(olen) * float32(pct))) for every
-    olen 0..160, as fastp_tpu computes it."""
+    olen 0..160, as fastp_tpu computes it (0 everywhere at pct = 0)."""
     olen = np.arange(0, 161, dtype=np.int32)
     want = np.asarray(jnp.minimum(5, (jnp.asarray(olen).astype(jnp.float32)
                                       * pct).astype(jnp.int32)))
@@ -153,7 +155,7 @@ def test_kernel_matches_plain_on_card():
     for s1, l1, s2, l2 in (_corpus(7, B=512, L=160), _dirty(8, B=512)):
         s1, l1, s2, l2 = (torch.from_numpy(x).cuda() for x in (s1, l1, s2, l2))
         rc2 = rc(s2, l2).contiguous()
-        for setting in ((5, 30, 0.2), (2, 20, 0.1)):
+        for setting in ((5, 30, 0.2), (2, 20, 0.1), (5, 30, 0.0)):
             before = overlap_cuda.sweep_select.launches
             got = overlap_cuda.sweep_select(s1, rc2, l1, l2, *setting)
             torch.cuda.synchronize()

@@ -1,11 +1,14 @@
-"""The port's PE step (fastp_tpu_torch.pipeline.device.build_pe_step on the
-CPU) against fastp_tpu's, key by key.
+"""The port's SE and PE steps (fastp_tpu_torch.pipeline.device.build_se_step
+and build_pe_step on the CPU) against fastp_tpu's, key by key.
 
 fastp_tpu's step returns packed buffers; unpack_from_host turns them into
 the dict its host loop reads.  The port returns that dict directly.  Both
 must have the same key set and, after casting to int64, the same values
-(exact: every output is an integer, a bool or a byte).
+(exact: every output is an integer, a bool or a byte).  Every config runs
+lean and not lean: the test sets cfg.lean itself, so the comparison does
+not depend on whether this process loaded the native library.
 """
+import dataclasses
 import os
 import sys
 from types import SimpleNamespace
@@ -18,6 +21,7 @@ from fastp_tpu.pipeline import device as j_device
 from fastp_tpu.pipeline.static_cfg import device_cfg_from_options
 from fastp_tpu_torch.cli import prepare_options
 from fastp_tpu_torch.pipeline import device as t_device
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R1 = os.path.join(ROOT, "tests", "testdata", "R1.fq")
@@ -31,13 +35,21 @@ CONFIGS = {
     "bench_polyg": BENCH + ["--trim_poly_g"],
     "cut_front_tail_polyx": ["--cut_front", "--cut_tail", "--trim_poly_x",
                              "-f", "2", "-t", "1", "--low_complexity_filter"],
+    "cfg8": ["--correction", "--cut_right", "--failed_out", "f.fq",
+             "--unpaired1", "u1.fq", "--overlapped_out", "ov.fq", "-l", "100"],
+}
+SE_CONFIGS = {
+    "cfg1": [],
+    "bench": ["-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"],
+    "failed_out": ["--failed_out", "f.fq", "--cut_front", "-f", "3",
+                   "--trim_poly_x"],
 }
 
 
-def _cfg(flags):
-    opt = prepare_options(["fastp_tpu_torch", "-i", R1, "-I", R2,
-                           "-o", "o1.fq", "-O", "o2.fq"] + flags)
-    return device_cfg_from_options(opt)
+def _cfg(flags, lean, paired=True):
+    mates = ["-I", R2, "-o", "o1.fq", "-O", "o2.fq"] if paired else ["-o", "o.fq"]
+    opt = prepare_options(["fastp_tpu_torch", "-i", R1] + mates + flags)
+    return dataclasses.replace(device_cfg_from_options(opt), lean=lean)
 
 
 def _synth_batch(seed, B=256, L=160, nvalid=240):
@@ -77,27 +89,45 @@ def _compare(got, want, path=""):
         assert np.array_equal(g, w), (path + k, np.argwhere(g != w)[:5])
 
 
+def _run_jax(build, cfg, batch):
+    step_j = build(cfg)
+    out = step_j(*batch, *j_device.make_aux(cfg, 240))
+    return j_device.unpack_from_host(jax.device_get(out), step_j.layout)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_step_matches_jax(name):
-    cfg = _cfg(CONFIGS[name])
-    assert cfg.lean
+def test_step_matches_jax(name, lean):
+    cfg = _cfg(CONFIGS[name], lean)
     batch = _synth_batch(len(name))
-    aux_j = j_device.make_aux(cfg, 240)
-    step_j = j_device.build_pe_step(cfg)
-    want = j_device.unpack_from_host(jax.device_get(step_j(*batch, *aux_j)),
-                                     step_j.layout)
+    want = _run_jax(j_device.build_pe_step, cfg, batch)
     got = t_device.build_pe_step(cfg, "cpu")(*batch, *t_device.make_aux(cfg, 240))
     _compare(got, want)
+    assert ("result1" in got) == (not lean)
     if cfg.correction_enabled:
         assert int(want["c1_count"]) + int(want["c2_count"]) > 0
+    if cfg.overlapped_out:  # the diff_pct = 0 re-analysis accepts some pairs
+        assert 0 < int(want["ov0_ok"].sum()) < int(want["ov_ok"].sum()
+                                                   if not lean else 240)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("name", sorted(SE_CONFIGS))
+def test_se_step_matches_jax(name, lean):
+    cfg = _cfg(SE_CONFIGS[name], lean, paired=False)
+    batch = _synth_batch(len(name) + 100)[:3]
+    want = _run_jax(j_device.build_se_step, cfg, batch)
+    got = t_device.build_se_step(cfg, "cpu")(*batch, *t_device.make_aux(cfg, 240))
+    _compare(got, want)
+    assert ("result" in got) == (not lean)
+    if cfg.adapter_enabled and cfg.has_seq1:
+        assert want["ad_found"].any()
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--merge", "--merged_out", "m.fq"], "item 10"),
-    (["--failed_out", "f.fq"], "item 8"),
-    (["--overlapped_out", "ov.fq"], "item 10"),
     (["--allow_gap_overlap_trimming"], "item 11"),
 ])
 def test_step_rejects_configs_outside_the_slice(flags, item):
     with pytest.raises(NotImplementedError, match=item):
-        t_device.build_pe_step(_cfg(flags), "cpu")
+        t_device.build_pe_step(_cfg(flags, lean=True), "cpu")
