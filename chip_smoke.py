@@ -11,16 +11,24 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  --overlapped_out re-analysis) among them, with CUDA-event
                  timings of both
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
-                 (single-end), cfg3, cfg6 (--failed_out, unpaired), cfg7
-                 (split) and cfg8 (--failed_out, --overlapped_out): every
-                 FASTQ file of each golden and fastp.json
+                 (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
+                 sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
+                 and cfg8 (--failed_out, --overlapped_out): every FASTQ
+                 file of each golden and fastp.json
   5. main     -- a 1,000,000-pair PE151 corpus through cli.run with the
                  bench flags; the kernel must launch once per batch or more
   6. se       -- R1 of that corpus as single-end input with cfg1's flags
   7. failed   -- the corpus with cfg8's flags; the kernel must launch at
                  least twice per batch and every output stream is non-empty
-  8. cpu      -- the first 20,000 pairs (reads) of phases 5, 6 and 7 on the
-                 card and on the CPU give identical output files
+  8. merge    -- the corpus with cfg5's flags; the kernel must launch at
+                 least twice per batch (the analysis and the merge
+                 re-analysis), merged.fq is non-empty and the report's
+                 merged_and_filtered section counts reads
+  9. cpu      -- the first 20,000 pairs (reads) of phases 5 to 8, of a
+                 --allow_gap_overlap_trimming run, of an SE --adapter_fasta
+                 run and of an --interleaved_in --stdout run on the card and
+                 on the CPU give identical output files (the last one's
+                 standard output too); the gap run is timed on the card
 Then a JSON line of the kernel results and, last, the device line.
 The script imports no JAX.
 """
@@ -52,6 +60,12 @@ BENCH_FLAGS = ["--correction", "--cut_right",
 CFG8_FLAGS = ["--correction", "--cut_right", "--failed_out", "failed.fq",
               "--unpaired1", "up1.fq", "--overlapped_out", "ov.fq",
               "-l", "100"]
+CFG5_FLAGS = ["--merge", "--merged_out", "merged.fq", "--dedup",
+              "--dup_calc_accuracy", "1", "--overrepresentation_analysis"]
+GAP_FLAGS = ["--allow_gap_overlap_trimming", "--correction", "--cut_right"]
+# tools/make_synth.py's read-through adapters, as one FASTA
+FASTA = (">r1\nAGATCGGAAGAGCACACGTCTGAACTCCAGTCA\n"
+         ">r2\nAGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT\n")
 GOLDENS = os.path.join(ROOT, "tests", "golden")
 TESTDATA = os.path.join(ROOT, "tests", "testdata")
 PE_IN = ["-i", os.path.join(TESTDATA, "R1.fq"), "-I", os.path.join(TESTDATA, "R2.fq")]
@@ -60,6 +74,8 @@ GOLDEN_RUNS = {
     "cfg1_se_default": ["-i", os.path.join(TESTDATA, "R1.fq"), "-o", "out.fq"],
     "cfg3_pe_correction": PE_IN + ["-o", "out1.fq", "-O", "out2.fq",
                                    "--correction", "--cut_right"],
+    "cfg5_merge": PE_IN + ["--out1", "out1.fq", "--out2", "out2.fq"]
+    + CFG5_FLAGS,
     "cfg6_failed": PE_IN + ["-o", "out1.fq", "-O", "out2.fq", "--failed_out",
                             "failed.fq", "--unpaired1", "up1.fq",
                             "--unpaired2", "up2.fq", "-l", "100"],
@@ -382,42 +398,121 @@ def phase_failed(work, r1, r2):
     return launches
 
 
+def phase_merge(work, r1, r2):
+    res, d, wall, launches = _drive(
+        work, "merge", ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
+                        *CFG5_FLAGS])
+    batches = res["batches"]
+    reads = res["pre1"].reads
+    check(reads == MAIN_PAIRS, "merge run read %d pairs" % reads)
+    check(launches >= 2 * batches > 0,
+          "overlap kernel launched %d times for %d batches (want twice per "
+          "batch: the analysis and the merge re-analysis)" % (launches, batches))
+    files = _nonempty_outputs(d, "merge")
+    check("merged.fq" in files, "merge run wrote %s" % files)
+    with open(os.path.join(d, "fastp.json")) as fh:
+        merged = json.load(fh)["merged_and_filtered"]["total_reads"]
+    merged_pairs = res["filter"].merged_pairs
+    check(0 < merged_pairs <= merged, "merge run merged %d pairs, reported "
+          "%d merged-and-filtered reads" % (merged_pairs, merged))
+    print("phase merge: %d pairs (cfg5 flags) in %.3f s wall = %.0f pairs/s; "
+          "%d batches, %d overlap kernel launches (%.2f per batch); %d pairs "
+          "merged, %d reads in merged_and_filtered; %s"
+          % (reads, wall, reads / wall, batches, launches, launches / batches,
+             merged_pairs, merged,
+             ", ".join("%s %d B" % (f, os.path.getsize(os.path.join(d, f)))
+                       for f in files)), flush=True)
+    return launches
+
+
+def _interleave(r1, r2, path, pairs):
+    """The first `pairs` records of r1 and r2 as one interleaved FASTQ."""
+    with open(r1, "rb") as f1, open(r2, "rb") as f2, open(path, "wb") as out:
+        for _ in range(pairs):
+            out.writelines([f1.readline() for _ in range(4)]
+                           + [f2.readline() for _ in range(4)])
+
+
 def phase_cpu(work, r1, r2):
-    """The first CPU_PAIRS of each path on the CPU (three processes, started
-    together) and on the card, compared file by file."""
+    """The first CPU_PAIRS of each path on the card, then on the CPU (one
+    process each, started together), compared file by file.  The paths
+    that write to the standard output run on the card in a subprocess too,
+    with the output in a file; the others run in this process, which counts
+    their kernel launches and times them (before the CPU runs start, so
+    that they do not compete for the host's cores).  Returns {path:
+    (launches, card wall seconds)} of the in-process runs."""
     prefix = ["--reads_to_process", str(CPU_PAIRS)]
+    fasta = os.path.join(work, "adapters.fa")
+    with open(fasta, "w") as fh:
+        fh.write(FASTA)
+    interleaved = os.path.join(work, "interleaved.fq")
+    _interleave(r1, r2, interleaved, CPU_PAIRS)
+    pe = ["-i", r1, "-I", r2]
     paths = {
-        "main": ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
-                 *BENCH_FLAGS],
+        "main": pe + ["-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS],
         "se": ["-i", r1, "-o", "out.fq"],
-        "failed": ["-i", r1, "-I", r2, "-o", "o1.fq", "-O", "o2.fq",
-                   *CFG8_FLAGS],
+        "failed": pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS],
+        "merge": pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS],
+        "gap": pe + ["-o", "out1.fq", "-O", "out2.fq", *GAP_FLAGS],
+        "fasta": ["-i", r1, "-o", "out.fq", "--adapter_fasta", fasta],
+        "interleaved_stdout": ["-i", interleaved, "--interleaved_in",
+                               "--stdout", "--correction", "--cut_right"],
     }
-    procs = {}
-    for name, args in paths.items():
-        cpu_dir = os.path.join(work, "cmp_cpu_" + name)
-        os.makedirs(cpu_dir)
-        procs[name] = (cpu_dir, subprocess.Popen(
-            port_cmd(*args, *prefix), cwd=cpu_dir,
-            env=port_env(CUDA_VISIBLE_DEVICES=""), stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True))
-    compared = []
-    for name, args in paths.items():
+    to_stdout = ("interleaved_stdout",)
+
+    def start(name, cwd, **env):
+        out = (open(os.path.join(cwd, "stdout.fq"), "wb") if name in to_stdout
+               else subprocess.DEVNULL)
+        proc = subprocess.Popen(port_cmd(*paths[name], *prefix), cwd=cwd,
+                                env=port_env(**env), stdout=out,
+                                stderr=subprocess.PIPE, text=True)
+        if name in to_stdout:
+            out.close()
+        return proc
+
+    def finish(name, proc, where):
+        _, err = proc.communicate()
+        check(proc.returncode == 0, "%s run %s failed:\n%s"
+              % (where, name, err[-3000:]))
+        check("running on %s" % where in err,
+              "%s run %s did not run there" % (where, name))
+
+    card = {}
+    for name in paths:
         gpu_dir = os.path.join(work, "cmp_gpu_" + name)
         os.makedirs(gpu_dir)
-        _, log = _run_in_process(["fastp_tpu_torch", *args, *prefix], gpu_dir)
+        if name in to_stdout:
+            finish(name, start(name, gpu_dir), "cuda")
+            continue
+        overlap_cuda.sweep_select.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, log = _run_in_process(["fastp_tpu_torch", *paths[name], *prefix],
+                                 gpu_dir)
+        torch.cuda.synchronize()
+        card[name] = (overlap_cuda.sweep_select.launches,
+                      time.perf_counter() - t0)
         check("running on cuda" in log, "card run %s did not use CUDA" % name)
+    procs = {}
+    for name in paths:
+        cpu_dir = os.path.join(work, "cmp_cpu_" + name)
+        os.makedirs(cpu_dir)
+        procs[name] = (cpu_dir, start(name, cpu_dir, CUDA_VISIBLE_DEVICES=""))
+    compared = []
     for name, (cpu_dir, proc) in procs.items():
-        _, err = proc.communicate()
-        check(proc.returncode == 0, "cpu run %s failed:\n%s"
-              % (name, err[-3000:]))
-        check("running on cpu" in err, "cpu run %s did not run on the CPU" % name)
+        finish(name, proc, "cpu")
         files = same_outputs(os.path.join(work, "cmp_gpu_" + name), cpu_dir,
                              "card vs cpu, " + name)
+        for f in files:
+            check(os.path.getsize(os.path.join(cpu_dir, f)) > 0,
+                  "card vs cpu, %s: %s is empty" % (name, f))
         compared.append("%s (%s)" % (name, ", ".join(files)))
     print("phase cpu: the first %d pairs (reads) give identical files on the "
-          "card and on the CPU: %s" % (CPU_PAIRS, "; ".join(compared)),
-          flush=True)
+          "card and on the CPU: %s; card wall and overlap kernel launches: %s"
+          % (CPU_PAIRS, "; ".join(compared), "; ".join(
+              "%s %.3f s, %d" % (name, wall, n)
+              for name, (n, wall) in card.items())), flush=True)
+    return card
 
 
 def main():
@@ -430,8 +525,10 @@ def main():
         r1, r2 = _make_corpus(work)
         launches = {"main": phase_main(work, r1, r2),
                     "se": phase_se(work, r1),
-                    "failed": phase_failed(work, r1, r2)}
-        phase_cpu(work, r1, r2)
+                    "failed": phase_failed(work, r1, r2),
+                    "merge": phase_merge(work, r1, r2)}
+        short_runs = phase_cpu(work, r1, r2)
+        launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
     shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
     kernel_ms, plain_ms = timing[OVERLAP_SETTINGS[0][2]]
     zero_ms, zero_plain_ms = timing[0.0]

@@ -2,9 +2,10 @@
 
 Follows fastp_tpu/cli.py:main with the same parser, options, early input
 check, evaluator pre-pass (sequence length, adapter detection, validation,
-the split size, the two-colour polyG switch), the choice of the SE or PE
-processor and the report lines on stderr.  The device is CUDA when torch
-sees a card, else the CPU; the run names it on stderr.
+the split size, the two-colour polyG switch; all skipped for STDIN input),
+the choice of the SE or PE processor and the report lines on stderr.  The
+device is CUDA when torch sees a card, else the CPU; the run names it on
+stderr.
 """
 from __future__ import annotations
 
@@ -51,19 +52,24 @@ def prepare_options(argv):
     if args.devices > 1:
         _not_ported("--devices > 1", 13)
     opt = options_from_args(args, argv)
-    if opt.inputFromSTDIN or opt.in1 == "/dev/stdin":
-        _not_ported("--stdin", 11)
-
-    check_file_valid(opt.in1)
+    # a stream cannot be read twice: no early check, pre-pass or evaluation
+    evaluate = not opt.inputFromSTDIN and opt.in1 != "/dev/stdin"
+    if opt.in1 and evaluate:
+        check_file_valid(opt.in1)
     if opt.in2:
         check_file_valid(opt.in2)
     eva = Evaluator(opt)
-    eva.evaluate_seq_len()
-    if opt.overRepAnalysis.enabled:
-        eva.evaluate_overrep_seqs()
+    if evaluate:
+        eva.evaluate_seq_len()
+        if opt.overRepAnalysis.enabled:
+            eva.evaluate_overrep_seqs()
     read_num = 0
     for is_r2 in (False, True):
         if not opt.shallDetectAdapter(is_r2):
+            continue
+        if not evaluate:
+            sys.stderr.write("Adapter auto-detection is disabled for STDIN "
+                             "mode\n")
             continue
         read = "read2" if is_r2 else "read1"
         sys.stderr.write("Detecting adapter sequence for %s...\n" % read)
@@ -86,7 +92,7 @@ def prepare_options(argv):
         sys.stderr.write("\n")
     # reference order: validate runs after adapter detection (main.cpp:485)
     opt.validate()
-    if opt.split.needEvaluation:
+    if opt.split.needEvaluation and evaluate:
         if read_num == 0:
             read_num = eva.evaluate_read_num()
         opt.split.size = read_num // opt.split.number
@@ -94,7 +100,7 @@ def prepare_options(argv):
             opt.split.size = 1
             sys.stderr.write("WARNING: the input file has less reads than "
                              "the number of files to split\n")
-    if (not args.trim_poly_g and not args.disable_trim_poly_g
+    if (not args.trim_poly_g and not args.disable_trim_poly_g and evaluate
             and eva.is_two_color_system()):
         opt.polyGTrim.enabled = True
     return opt

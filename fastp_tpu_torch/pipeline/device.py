@@ -5,9 +5,9 @@ build_pe_step for plain (uint8) inputs, unsharded and non-accumulating,
 lean or not as cfg.lean says: the reference order of
 src/seprocessor.cpp:196-315 and src/peprocessor.cpp:361-600 (stats,
 trim/cut, polyG, overlap analysis, correction, adapter trimming, polyX,
-filters, stats, histograms).  A step returns a numpy dict with the keys
-and value semantics that fastp_tpu.pipeline.device.unpack_from_host yields
-for the same cfg.
+merging, filters, stats, histograms).  A step returns a numpy dict with
+the keys and value semantics that fastp_tpu.pipeline.device.unpack_from_host
+yields for the same cfg.
 Integers may be wider than the JAX step's slimmed int8/int16 transfer
 types, and int8-biased fields come back unbiased, as unpack_from_host
 gives them.
@@ -23,6 +23,7 @@ from fastp_tpu.pipeline.static_cfg import DeviceCfg
 from ..ops import adapter as adapter_ops
 from ..ops import correct as correct_ops
 from ..ops import filter as filter_ops
+from ..ops import merge as merge_ops
 from ..ops import overlap as overlap_ops
 from ..ops import polyx as polyx_ops
 from ..ops import stats as stats_ops
@@ -44,20 +45,13 @@ class _FilterCfgView:
             setattr(self, k, getattr(cfg, k))
 
 
-def _check_supported(cfg: DeviceCfg):
-    """Raise NotImplementedError naming the ROADMAP item of the first config
-    outside the ported slice."""
-    why = None
-    if cfg.paired and cfg.merge_enabled:
-        why = "--merge (ROADMAP Queue 1 item 10)"
-    elif (cfg.paired and cfg.allow_gap_overlap
-          and (cfg.adapter_enabled or cfg.correction_enabled)):
-        why = "--allow_gap_overlap_trimming (ROADMAP Queue 1 item 11)"
-    elif cfg.adapter_enabled and cfg.fasta_adapters:
-        why = "--adapter_fasta (ROADMAP Queue 1 item 11)"
-    if why is not None:
-        raise NotImplementedError("fastp_tpu_torch does not support %s yet"
-                                  % why)
+def _multi_fasta_match_req(n: int) -> int:
+    """reference: src/adaptertrimmer.cpp:48-52"""
+    if n > 256:
+        return 6
+    if n > 16:
+        return 5
+    return 4
 
 
 def aux_arg_names(cfg: DeviceCfg):
@@ -129,8 +123,10 @@ def _trim_one_end(bases, quals, lengths, pre_trim, cfg: DeviceCfg, is_r2: bool):
 
 
 def _apply_seq_adapters(w_b, rlen, alive, cfg: DeviceCfg, adapter, has_seq,
-                        ov_trimmed=None):
-    """Adapter by sequence.  Returns (rlen', info dict)."""
+                        fasta, ov_trimmed=None):
+    """Adapter by sequence, then the FASTA list in list order, each on the
+    length the previous one left and gated by `alive` only.  Returns
+    (rlen', info dict); the FASTA trims are not recorded in it."""
     B = w_b.shape[0]
     out = {"rlen_pre_adapter": rlen}
     if cfg.adapter_enabled and has_seq and adapter.shape[0] > 0:
@@ -145,6 +141,11 @@ def _apply_seq_adapters(w_b, rlen, alive, cfg: DeviceCfg, adapter, has_seq,
         out["ad_found"] = torch.zeros(B, dtype=torch.bool, device=w_b.device)
         out["ad_pos"] = torch.zeros(B, dtype=I32, device=w_b.device)
     out["rlen_post_adapter"] = rlen
+    if cfg.adapter_enabled and fasta:
+        mreq = _multi_fasta_match_req(len(fasta))
+        for a in fasta:
+            new_len, found, _ = adapter_ops.trim_by_sequence(w_b, rlen, a, mreq)
+            rlen = torch.where(found & alive, new_len, rlen)
     return rlen, out
 
 
@@ -194,16 +195,20 @@ def _to_host(out: dict) -> dict:
 
 
 def _step_io(cfg: DeviceCfg, device):
-    """(torch.device, the adapters uploaded once, upload(x, dtype))."""
+    """(torch.device, the two adapters and the FASTA list uploaded once,
+    upload(x, dtype))."""
     device = torch.device(device)
-    adapters = tuple(torch.tensor(np.frombuffer(a, np.uint8).copy(),
-                                  dtype=torch.uint8, device=device)
-                     for a in (cfg.adapter_seq1, cfg.adapter_seq2))
+
+    def put(a):
+        return torch.tensor(np.frombuffer(a, np.uint8).copy(),
+                            dtype=torch.uint8, device=device)
+    adapters = (put(cfg.adapter_seq1), put(cfg.adapter_seq2))
+    fasta = tuple(put(a) for a in cfg.fasta_adapters)
 
     def upload(x, dtype):
         return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                                else x).to(device=device, dtype=dtype)
-    return device, adapters, upload
+    return device, adapters, fasta, upload
 
 
 def _result_hist(result, counted, weight: int):
@@ -219,8 +224,7 @@ def build_se_step(cfg: DeviceCfg, device):
     arrays or tensors -- uint8[B, L] bases/quals, int[B] lengths, aux as
     make_aux builds it -- and returns the numpy output dict.  It launches
     no hand-written kernel: the SE path has no overlap analysis."""
-    _check_supported(cfg)
-    device, adapters, upload = _step_io(cfg, device)
+    device, adapters, fasta, upload = _step_io(cfg, device)
     fview = _FilterCfgView(cfg)
 
     def step(bases, quals, lengths, *aux):
@@ -241,7 +245,7 @@ def build_se_step(cfg: DeviceCfg, device):
             rlen = torch.where(
                 alive, polyx_ops.trim_polyg(w_b, rlen, cfg.polyg_min_len), rlen)
         rlen, ad = _apply_seq_adapters(w_b, rlen, alive, cfg, adapters[0],
-                                       cfg.has_seq1)
+                                       cfg.has_seq1, fasta)
         rlen, polyx_reads, polyx_bases = _apply_polyx_maxlen(
             w_b, rlen, alive, cfg, False)
         result = filter_ops.pass_filter(w_b, w_q, rlen, alive, fview)
@@ -285,8 +289,7 @@ def build_pe_step(cfg: DeviceCfg, device):
     (b1, q1, l1, b2, q2, l2, *aux) as numpy arrays or tensors -- uint8[B, L]
     bases/quals, int[B] lengths, aux as make_aux builds it -- and returns
     the numpy output dict."""
-    _check_supported(cfg)
-    device, adapters, upload = _step_io(cfg, device)
+    device, adapters, fasta, upload = _step_io(cfg, device)
     fview = _FilterCfgView(cfg)
 
     def step(b1, q1, l1, b2, q2, l2, *aux):
@@ -318,8 +321,10 @@ def build_pe_step(cfg: DeviceCfg, device):
         rlen1_pre_ovtrim = rlen1
         rlen2_pre_ovtrim = rlen2
 
+        need_ov = cfg.adapter_enabled or cfg.correction_enabled
         ov = overlap_ops.analyze(w1, rlen1, w2, rlen2, cfg.overlap_diff_limit,
-                                 cfg.overlap_require, cfg.overlap_diff_pct)
+                                 cfg.overlap_require, cfg.overlap_diff_pct,
+                                 cfg.allow_gap_overlap and need_ov)
         ov_ok = ov["overlapped"] & both
 
         # insert size (reference: statInsertSize, src/peprocessor.cpp:698-711)
@@ -359,9 +364,9 @@ def build_pe_step(cfg: DeviceCfg, device):
             ov_trimmed = ov_trimmed & both
 
         rlen1, ad1 = _apply_seq_adapters(w1, rlen1, both, cfg, adapters[0],
-                                         cfg.has_seq1, ov_trimmed)
+                                         cfg.has_seq1, fasta, ov_trimmed)
         rlen2, ad2 = _apply_seq_adapters(w2, rlen2, both, cfg, adapters[1],
-                                         cfg.has_seq2, ov_trimmed)
+                                         cfg.has_seq2, fasta, ov_trimmed)
 
         # overlapped_out: re-analysis with diff percent 0 on the
         # adapter-trimmed (pre-polyX) reads (src/peprocessor.cpp:461-468);
@@ -377,11 +382,40 @@ def build_pe_step(cfg: DeviceCfg, device):
         rlen1, px_r1, px_b1 = _apply_polyx_maxlen(w1, rlen1, both, cfg, False)
         rlen2, px_r2, px_b2 = _apply_polyx_maxlen(w2, rlen2, both, cfg, True)
 
+        # merge-mode overlap analysis on the final trimmed reads, always
+        # ungapped; on the card another launch of the overlap kernel
+        if cfg.merge_enabled:
+            ovm = overlap_ops.analyze(w1, rlen1, w2, rlen2,
+                                      cfg.overlap_diff_limit,
+                                      cfg.overlap_require, cfg.overlap_diff_pct)
+            ovm_ok = ovm["overlapped"] & both
+            m_seq, m_qual, m_len, m_len1, m_len2 = merge_ops.merge_pairs(
+                w1, wq1, rlen1, w2, wq2, rlen2, ovm_ok, ovm["offset"],
+                ovm["overlap_len"], out_width=2 * L)
+            m_result = filter_ops.pass_filter(m_seq, m_qual, m_len, ovm_ok,
+                                              fview)
+            m_emit = ovm_ok & (m_result == PASS_FILTER)
+            out.update({
+                "merged_ok": ovm_ok, "m_len": m_len, "m_len1": m_len1,
+                "m_len2": m_len2, "m_result": m_result, "m_emit": m_emit,
+                "ovm_olen": ovm["overlap_len"],
+                "post_merged": stats_ops.stat_batch(m_seq, m_qual, m_len,
+                                                    m_emit),
+            })
+
         result1 = filter_ops.pass_filter(w1, wq1, rlen1, alive1, fview)
         result2 = filter_ops.pass_filter(w2, wq2, rlen2, alive2, fview)
         pass1 = (result1 == PASS_FILTER) & alive1
         pass2 = (result2 == PASS_FILTER) & alive2
         emit_pair = pass1 & pass2 & ~dedup_out & ~index_drop
+        if cfg.merge_enabled and cfg.merge_include_unmerged:
+            # per-mate post stats of the unmerged survivors, which the host
+            # adds into the merged-stream stats (src/peprocessor.cpp:503,513)
+            not_merged = ~ovm_ok & ~dedup_out & alive1 & alive2
+            out["post_um1"] = stats_ops.stat_batch(w1, wq1, rlen1,
+                                                   not_merged & pass1)
+            out["post_um2"] = stats_ops.stat_batch(w2, wq2, rlen2,
+                                                   not_merged & pass2)
         out.update({
             "pre1": pre1, "pre2": pre2,
             "post1": stats_ops.stat_batch(w1, wq1, rlen1, emit_pair),
@@ -408,11 +442,37 @@ def build_pe_step(cfg: DeviceCfg, device):
         })
         if cfg.lean:
             # the lean reductions and deletions of fastp_tpu's step
-            # (device.py:908-983, without merge): max(result1, result2)
-            # weighted 2 over counted rows, the histogram route_pe would
+            # (device.py:908-983): the result histogram route_pe would
             # build; the per-read overlap fields reduce to a corr_able bit
-            out["result_hist"] = _result_hist(
-                torch.maximum(result1, result2), valid & ~index_drop, 2)
+            counted = valid & ~index_drop
+            worst = torch.maximum(result1, result2)
+            if cfg.merge_enabled:
+                # route_pe's three row classes: merged rows count m_result
+                # x2 (merged_ok already embeds counted); include_unmerged
+                # rows count result1 and result2 x1 each; the rest count
+                # max(r1, r2) x2
+                mm = ovm_ok
+                um = (alive1 & alive2 & ~mm if cfg.merge_include_unmerged
+                      else torch.zeros_like(mm))
+                normal = counted & ~(mm | um)
+                hist = (_result_hist(m_result, mm, 2)
+                        + _result_hist(result1, um, 1)
+                        + _result_hist(result2, um, 1)
+                        + _result_hist(worst, normal, 2))
+                if cfg.merge_include_unmerged:
+                    r1ok = alive1 & (result1 == PASS_FILTER)
+                    r2ok = alive2 & (result2 == PASS_FILTER)
+                    out["um_emit1"] = um & r1ok & ~dedup_out
+                    out["um_emit2"] = um & r2ok & ~dedup_out
+                    out["um_both_pass"] = (um & r1ok & r2ok).sum(
+                        dtype=I32)[None]
+                # route_pe derives the rest from m_emit, normal and pass*
+                out["normal"] = normal
+                for k in ("m_result", "m_len", "merged_ok", "post1", "post2"):
+                    del out[k]
+                out["result_hist"] = hist
+            else:
+                out["result_hist"] = _result_hist(worst, counted, 2)
             for k in ("result1", "result2", "alive1", "alive2", "emit_pair"):
                 del out[k]
             if cfg.correction_enabled:

@@ -1,10 +1,11 @@
 """Paired-end streaming processor (reference: src/peprocessor.cpp:361-711).
 
-Counterpart of fastp_tpu/pipeline/pe_runner.py for the unmerged PE path,
-lean or not.  The batch loop is synchronous: read -> host pre-ops -> torch
-step (outputs copied to numpy) -> routing -> writers.  Routing is
-fastp_tpu's route_pe (reused by import) where the native library loaded,
-else the per-row loop below, as in fastp_tpu.
+Counterpart of fastp_tpu/pipeline/pe_runner.py, lean or not: two input
+files or one interleaved stream, merging, unpaired/failed/overlapped/split
+outputs and interleaved or merged stdout.  The batch loop is synchronous:
+read -> host pre-ops -> torch step (outputs copied to numpy) -> routing ->
+writers.  Routing is fastp_tpu's route_pe (reused by import) where the
+native library loaded, else the per-row loop below, as in fastp_tpu.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict
 
 import numpy as np
 
-from fastp_tpu.config import Options, FAILED_TYPES
+from fastp_tpu.config import Options, FAILED_TYPES, PASS_FILTER
 from fastp_tpu.io import native as native_mod
 from fastp_tpu.io.fastq import ArrayBatch, OutputWriter, open_batch_reader
 from fastp_tpu.report.filter_model import FilterResult
@@ -27,10 +28,12 @@ from fastp_tpu.pipeline.pe_route import route_pe
 
 from .device import build_pe_step, make_aux
 from .runner import (BaseProcessor, SplitWriterSet, _OverRepCounter,
-                     group_pair_slices, group_slices)
+                     _round_width, group_pair_slices, group_slices)
 
-# output streams of the PE path, in the order fastp_tpu writes them
-_STREAMS = ("out1", "out2", "unpaired1", "unpaired2", "failed", "overlapped")
+# the PE path's file streams, in the order fastp_tpu writes them; --stdout
+# takes "merged" with --merge, else "single", the interleaved pairs
+_STREAMS = ("out1", "out2", "unpaired1", "unpaired2", "merged", "failed",
+            "overlapped")
 
 
 class _SeqView:
@@ -48,20 +51,58 @@ class _SeqView:
         return self.batch.n
 
 
-def _check_supported(opt: Options):
-    """Options the port's PE path does not cover yet, with their ROADMAP item
-    (the step itself rejects the device-side configs)."""
-    for on, what in ((opt.interleavedInput, "--interleaved_in (item 11)"),
-                     (opt.outputToSTDOUT, "--stdout (item 11)")):
-        if on:
-            raise NotImplementedError(
-                "fastp_tpu_torch does not support %s yet (ROADMAP Queue 1)"
-                % what)
+def _split_interleaved(batch: ArrayBatch):
+    """De-interleave a batch into (left, right) halves (even/odd rows)."""
+    def half(sel):
+        return ArrayBatch(
+            len(sel), batch.width,
+            np.ascontiguousarray(batch.bases[sel]),
+            np.ascontiguousarray(batch.quals[sel]),
+            np.ascontiguousarray(batch.lengths[sel]), chunk=batch.chunk,
+            name_off=batch.name_off[sel] if batch.name_off is not None else None,
+            name_len=batch.name_len[sel] if batch.name_len is not None else None,
+            strand_off=batch.strand_off[sel] if batch.strand_off is not None else None,
+            strand_len=batch.strand_len[sel] if batch.strand_len is not None else None,
+            names=([batch.names[i] for i in sel] if batch.name_off is None else None),
+            strands=([batch.strands[i] for i in sel] if batch.strand_off is None else None))
+    n2 = batch.n // 2
+    even = np.arange(0, 2 * n2, 2)
+    odd = even + 1
+    return half(even), half(odd)
+
+
+class _InterleavedPairSource:
+    """Pairs from one interleaved stream: 2n records, split even/odd."""
+
+    def __init__(self, reader):
+        self.reader = reader
+
+    def read_pair_batch(self, n: int, width: int):
+        batch = self.reader.read_batch(2 * n, width)
+        if batch is None or batch.n < 2:
+            return None, None
+        return _split_interleaved(batch)
+
+    def close(self):
+        self.reader.close()
+
+
+class _TwoFilePairSource:
+    """Pairs from two files, batch by batch."""
+
+    def __init__(self, reader1, reader2):
+        self.readers = (reader1, reader2)
+
+    def read_pair_batch(self, n: int, width: int):
+        return tuple(r.read_batch(n, width) for r in self.readers)
+
+    def close(self):
+        for r in self.readers:
+            r.close()
 
 
 class PairEndProcessor(BaseProcessor):
     def __init__(self, opt: Options, device):
-        _check_supported(opt)
         super().__init__(opt, device)
         self.step = build_pe_step(self.cfg, device)
         self.pre_stats1 = Stats(opt, False, self.width)
@@ -78,8 +119,12 @@ class PairEndProcessor(BaseProcessor):
 
     def process(self) -> Dict:
         opt = self.opt
-        reader1 = open_batch_reader(opt.in1, opt.phred64)
-        reader2 = open_batch_reader(opt.in2, opt.phred64)
+        if opt.interleavedInput:
+            source = _InterleavedPairSource(open_batch_reader(opt.in1,
+                                                              opt.phred64))
+        else:
+            source = _TwoFilePairSource(open_batch_reader(opt.in1, opt.phred64),
+                                        open_batch_reader(opt.in2, opt.phred64))
         writers = {}
         split = None
         if opt.split.enabled:
@@ -87,6 +132,7 @@ class PairEndProcessor(BaseProcessor):
         else:
             for key, path in (("out1", opt.out1), ("out2", opt.out2),
                               ("unpaired1", opt.unpaired1),
+                              ("merged", opt.merge.out),
                               ("failed", opt.failedOut),
                               ("overlapped", opt.overlappedOut)):
                 if path:
@@ -96,6 +142,11 @@ class PairEndProcessor(BaseProcessor):
                 writers["unpaired2"] = OutputWriter(
                     opt.unpaired2, opt.compression,
                     buffer_size=opt.writerBufferSize)
+            if opt.outputToSTDOUT:
+                writers["stdout"] = OutputWriter("", opt.compression,
+                                                 to_stdout=True)
+        to_stdout = (("merged" if opt.merge.enabled else "single")
+                     if opt.outputToSTDOUT else None)
         pairs_seen = 0
         last_reported = 0
         while True:
@@ -104,8 +155,7 @@ class PairEndProcessor(BaseProcessor):
                 n = min(n, opt.readsToProcess - pairs_seen)
                 if n <= 0:
                     break
-            batch1 = reader1.read_batch(n, self.width)
-            batch2 = reader2.read_batch(n, self.width)
+            batch1, batch2 = source.read_pair_batch(n, self.width)
             if batch1 is None or batch2 is None:
                 break
             parts, read_passed, B = self._process_batch(batch1, batch2,
@@ -115,8 +165,10 @@ class PairEndProcessor(BaseProcessor):
                              read_passed if opt.split.byFileLines else B,
                              parts.get("out2", b""))
             else:
+                if to_stdout:
+                    writers["stdout"].write(parts.get(to_stdout, b""))
                 for key in _STREAMS:
-                    if key in writers and parts.get(key):
+                    if key in writers and key != to_stdout and parts.get(key):
                         writers[key].write(parts[key])
             pairs_seen += B
             self.batches += 1
@@ -128,8 +180,7 @@ class PairEndProcessor(BaseProcessor):
         if opt.verbose:
             from fastp_tpu.utils.log import loginfo
             loginfo("batch loop done (%d pairs)" % pairs_seen)
-        reader1.close()
-        reader2.close()
+        source.close()
         for wtr in writers.values():
             wtr.close()
         if split is not None:
@@ -194,8 +245,12 @@ class PairEndProcessor(BaseProcessor):
 
         self.pre_stats1.add_batch(out["pre1"])
         self.pre_stats2.add_batch(out["pre2"])
-        self.post_stats1.add_batch(out["post1"])
-        self.post_stats2.add_batch(out["post2"])
+        if opt.merge.enabled:
+            # the merged stream's stats stand in for the per-mate post stats
+            self.post_stats1.add_batch(out["post_merged"])
+        else:
+            self.post_stats1.add_batch(out["post1"])
+            self.post_stats2.add_batch(out["post2"])
         self.insert_hist[:len(out["isize_hist"])] += out["isize_hist"]
         self.filter_result.add_polyx_trimmed(out["polyx_reads"],
                                              out["polyx_bases"])
@@ -224,28 +279,37 @@ class PairEndProcessor(BaseProcessor):
             self.overrep_pre2.stat_rows(batch2.bases, zeros, batch2.lengths, rows)
 
         if native_mod.get_lib() is not None:
-            parts, read_passed, _ = route_pe(self, out, batch1, batch2, B,
-                                             index_drop, pre_trim1, pre_trim2,
-                                             dedup_out)
+            parts, read_passed, merged_count = route_pe(
+                self, out, batch1, batch2, B, index_drop, pre_trim1,
+                pre_trim2, dedup_out)
+            if opt.merge.enabled and opt.merge.includeUnmerged:
+                self.post_stats1.add_batch(out["post_um1"])
+                self.post_stats1.add_batch(out["post_um2"])
         else:
-            parts, read_passed = self._route_rows(
+            parts, read_passed, merged_count = self._route_rows(
                 out, view, batch1, batch2, B, index_drop, pre_trim1,
                 pre_trim2, dedup_out)
+        if opt.merge.enabled:
+            self.filter_result.add_merged_pairs(merged_count)
         return parts, read_passed, B
 
     def _route_rows(self, out, view: PairWindowView, batch1: ArrayBatch,
                     batch2: ArrayBatch, B: int, index_drop, pre_trim1,
                     pre_trim2, dedup_out):
         """Per-row routing where the native library is missing (the
-        fallback loop of fastp_tpu/pipeline/pe_runner.py:443-594, without
-        merge and stdout).  Corrections come from the window view, not
-        from patched arrays.  Returns ({stream: bytes}, pairs passed)."""
+        fallback loop of fastp_tpu/pipeline/pe_runner.py:443-594).
+        Corrections come from the window view, not from patched arrays.
+        Returns ({stream: bytes}, pairs passed, pairs merged)."""
         opt = self.opt
-        parts = {k: [] for k in _STREAMS}
+        parts = {k: [] for k in _STREAMS + ("single",)}
         rlen1, rlen2 = out["rlen1"], out["rlen2"]
         result1, result2 = out["result1"], out["result2"]
         pass1, pass2 = out["pass1"], out["pass2"]
+        merge_on = opt.merge.enabled
+        pairs_key = ("single", "single") if (opt.outputToSTDOUT
+                                            and not merge_on) else ("out1", "out2")
         read_passed = 0
+        merged_count = 0
 
         def record(key, batch, i, win):
             seq, qual = win
@@ -265,6 +329,37 @@ class PairEndProcessor(BaseProcessor):
         for i in range(B):
             if index_drop[i]:
                 continue
+            if merge_on and out["merged_ok"][i]:
+                m_res = int(out["m_result"][i])
+                self.filter_result.add_filter_result(m_res, 2)
+                if m_res == PASS_FILTER:
+                    m_len1, m_len2 = int(out["m_len1"][i]), int(out["m_len2"][i])
+                    tag = b" merged_%d_%d" % (m_len1, m_len2)
+                    strand = batch1.strand(i)
+                    if strand != b"+":
+                        strand = strand + tag
+                    ms, mq = view.merged(i, int(rlen1[i]), int(rlen2[i]),
+                                         int(out["ovm_olen"][i]), m_len1,
+                                         m_len2)
+                    parts["merged"] += [batch1.name(i) + tag, b"\n", ms, b"\n",
+                                        strand, b"\n", mq, b"\n"]
+                    read_passed += 1
+                    merged_count += 1
+                continue
+            if (merge_on and opt.merge.includeUnmerged and out["alive1"][i]
+                    and out["alive2"][i]):
+                # the reference's merge block requires both mates alive
+                # (src/peprocessor.cpp:491); dead-mate rows fall through
+                for batch, res, rlen, win in ((batch1, result1, rlen1, view.r1),
+                                              (batch2, result2, rlen2, view.r2)):
+                    self.filter_result.add_filter_result(int(res[i]), 1)
+                    if res[i] == PASS_FILTER and not dedup_out[i]:
+                        sw, qw = win(i, int(rlen[i]))
+                        record("merged", batch, i, (sw, qw))
+                        self._stat_post1_read(sw, qw)
+                if result1[i] == PASS_FILTER and result2[i] == PASS_FILTER:
+                    read_passed += 1
+                continue
             self.filter_result.add_filter_result(
                 max(int(result1[i]), int(result2[i])), 2)
             if dedup_out[i]:
@@ -272,9 +367,9 @@ class PairEndProcessor(BaseProcessor):
             if pass1[i] and pass2[i]:
                 s1, qq1 = view.r1(i, int(rlen1[i]))
                 s2, qq2 = view.r2(i, int(rlen2[i]))
-                record("out1", batch1, i, (s1, qq1))
-                record("out2", batch2, i, (s2, qq2))
-                if self.overrep_post1.enabled:
+                record(pairs_key[0], batch1, i, (s1, qq1))
+                record(pairs_key[1], batch2, i, (s2, qq2))
+                if self.overrep_post1.enabled and not merge_on:
                     self.overrep_post1.stat_read(s1, read_passed)
                     self.overrep_post2.stat_read(s2, read_passed)
                 read_passed += 1
@@ -306,7 +401,44 @@ class PairEndProcessor(BaseProcessor):
                                          win=view.r2(i, int(rlen2[i])))
             # both-fail pairs write NOTHING to --failed_out
             # (no such branch in src/peprocessor.cpp:551-577)
-        return {k: b"".join(v) for k, v in parts.items() if v}, read_passed
+        return ({k: b"".join(v) for k, v in parts.items() if v}, read_passed,
+                merged_count)
+
+    def _stat_post1_read(self, seq: bytes, qual: bytes):
+        """Single-read post-stats accumulation for --include_unmerged rows
+        of the per-row loop (fastp_tpu/pipeline/pe_runner.py:766-800)."""
+        st = self.post_stats1
+        n = len(seq)
+        if n > st.buf_len:
+            st._grow(_round_width(n))
+        s = np.frombuffer(seq, np.uint8)
+        q = np.frombuffer(qual, np.uint8).astype(np.int64)
+        slot = s & 7
+        st.reads += 1
+        st.length_sum += n
+        pos = np.arange(n)
+        np.add.at(st.cycle_content, (slot, pos), 1)
+        np.add.at(st.cycle_qual, (slot, pos), q - 33)
+        np.add.at(st.cycle_q20, (slot[q >= ord('5')], pos[q >= ord('5')]), 1)
+        np.add.at(st.cycle_q30, (slot[q >= ord('?')], pos[q >= ord('?')]), 1)
+        st.cycle_total_base[:n] += 1
+        st.cycle_total_qual[:n] += q - 33
+        np.add.at(st.qual_hist, np.clip(q, 0, 127), 1)
+        # 5-mer keys over the read's ACGT runs
+        v = np.full(n, -1, np.int64)
+        v[s == 65] = 0
+        v[s == 84] = 1
+        v[s == 67] = 2
+        v[s == 71] = 3
+        if n >= 5:
+            keys = np.zeros(n - 4, np.int64)
+            ok = np.ones(n - 4, bool)
+            for k in range(5):
+                chunk = v[k:k + n - 4]
+                keys = (keys << 2) | np.maximum(chunk, 0)
+                ok &= chunk >= 0
+            np.add.at(st.kmer, keys[ok] & 0x3FF, 1)
+        st._summarized = False
 
     @staticmethod
     def _failed_row(parts, batch: ArrayBatch, i: int, pre_trim, tag,
@@ -478,10 +610,14 @@ class PairEndProcessor(BaseProcessor):
         self._print_stats(self.pre_stats1)
         sys.stderr.write("\nRead2 before filtering:\n")
         self._print_stats(self.pre_stats2)
-        sys.stderr.write("\nRead1 after filtering:\n")
-        self._print_stats(self.post_stats1)
-        sys.stderr.write("\nRead2 after filtering:\n")
-        self._print_stats(self.post_stats2)
+        if not opt.merge.enabled:
+            sys.stderr.write("\nRead1 after filtering:\n")
+            self._print_stats(self.post_stats1)
+            sys.stderr.write("\nRead2 after filtering:\n")
+            self._print_stats(self.post_stats2)
+        else:
+            sys.stderr.write("\nMerged and filtered:\n")
+            self._print_stats(self.post_stats1)
         sys.stderr.write("\nFiltering result:\n")
         self._print_filter_result()
 
@@ -492,6 +628,17 @@ class PairEndProcessor(BaseProcessor):
 
         peak = self._peak_insert_size()
         sys.stderr.write("\nInsert size peak (evaluated by paired-end reads): %d\n" % peak)
+        if opt.merge.enabled:
+            fr = self.filter_result
+            sys.stderr.write("\nRead pairs merged: %d\n" % fr.merged_pairs)
+            if self.post_stats1.get_reads() > 0:
+                post_pct = 100.0 * fr.merged_pairs / self.post_stats1.get_reads()
+                pre_pct = 100.0 * fr.merged_pairs / self.pre_stats1.get_reads()
+                sys.stderr.write("%% of original read pairs: %s%%\n"
+                                 % cpp_num(pre_pct))
+                sys.stderr.write("%% in reads after filtering: %s%%\n"
+                                 % cpp_num(post_pct))
+            sys.stderr.write("\n")
 
         jr = JsonReporter(opt)
         jr.set_dup(dup_rate)

@@ -7,12 +7,15 @@
   tools/make_synth.py corpus with the bench flags;
 * the correction-slot overflow path (exact host recomputation) against the
   normal sparse path on the same corpus;
-* the options outside the ported slice fail with their ROADMAP item.
+* the entry points and options the port does not cover yet (the server,
+  the self-test, several processes or devices) fail with their ROADMAP
+  item.
 
 The single-end and failure-routing paths have their own files
 (tests/test_torch_se.py, tests/test_torch_failed.py), which reuse the
 helpers here.
 """
+import contextlib
 import os
 import re
 import subprocess
@@ -56,7 +59,9 @@ def assert_same_outputs(dir_a, dir_b):
     return files
 
 
-def run_module(module, cwd, args, **env_extra):
+def run_module(module, cwd, args, stdin=None, stdout=None, **env_extra):
+    """Run `python -m module args` in cwd; `stdin` is a file to read from,
+    `stdout` the name of a file in cwd that takes the standard output."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -67,8 +72,13 @@ def run_module(module, cwd, args, **env_extra):
     # without)
     env.setdefault("OMP_NUM_THREADS", "1")
     env.update(env_extra)
-    res = subprocess.run([sys.executable, "-m", module] + args, cwd=str(cwd),
-                         env=env, capture_output=True, text=True, timeout=900)
+    with contextlib.ExitStack() as files:
+        fin = files.enter_context(open(stdin, "rb")) if stdin else None
+        fout = (files.enter_context(open(os.path.join(cwd, stdout), "wb"))
+                if stdout else subprocess.PIPE)
+        res = subprocess.run([sys.executable, "-m", module] + args,
+                             cwd=str(cwd), env=env, stdin=fin, stdout=fout,
+                             stderr=subprocess.PIPE, text=True, timeout=900)
     assert res.returncode == 0, res.stderr[-4000:]
     return res
 
@@ -144,15 +154,14 @@ def test_correction_overflow_path_is_exact(synth, tmp_path, monkeypatch):
     assert_same_outputs(d / "port", tmp_path)
 
 
-@pytest.mark.parametrize("args,item", [
-    (["-I", R2, "--local_processes", "2"], "item 13"),
-    (["-I", R2, "--devices", "2"], "item 13"),
-    (["-I", R2, "--stdout"], "item 11"),
-    (["--interleaved_in"], "item 11"),
+@pytest.mark.parametrize("argv,item", [
+    (["-i", R1, "-I", R2, "--local_processes", "2"], "item 13"),
+    (["-i", R1, "-I", R2, "--devices", "2"], "item 13"),
+    (["serve", "--socket", "s.sock"], "item 12"),
+    (["test"], "item 14"),
 ])
-def test_options_outside_the_slice(args, item, tmp_path, monkeypatch):
+def test_options_outside_the_slice(argv, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
-        cli.run(["fastp_tpu_torch", "-i", R1, "-o", "o1.fq", "-O", "o2.fq"]
-                + args)
+        cli.run(["fastp_tpu_torch"] + argv)
 

@@ -2,9 +2,9 @@
 
 A child process sets sys.modules['jax'] = None (so any `import jax` raises),
 imports every module of the package (the SE processor in
-pipeline/runner.py among them), runs the cfg3 and the single-end cfg1
-goldens through cli.main, and checks the outputs and that no JAX module
-was loaded.
+pipeline/runner.py and the merge op among them), runs the cfg3, the
+merging cfg5 and the single-end cfg1 goldens through cli.main, and checks
+the outputs and that no JAX module was loaded.
 """
 import os
 import subprocess
@@ -31,6 +31,11 @@ for name, args, outs in (
         ("cfg3_pe_correction", ["-I", os.path.join(data, "R2.fq"), "-o",
                                 "out1.fq", "-O", "out2.fq", "--correction",
                                 "--cut_right"], ("out1.fq", "out2.fq")),
+        ("cfg5_merge", ["-I", os.path.join(data, "R2.fq"), "--merge",
+                        "--merged_out", "merged.fq", "--out1", "out1.fq",
+                        "--out2", "out2.fq", "--dedup", "--dup_calc_accuracy",
+                        "1", "--overrepresentation_analysis"],
+         ("merged.fq", "out1.fq", "out2.fq")),
         ("cfg1_se_default", ["-o", "out.fq"], ("out.fq",))):
     golden = os.path.join(root, "tests", "golden", name)
     rc = cli.main(["fastp_tpu_torch", "-i", os.path.join(data, "R1.fq")] + args)
@@ -56,4 +61,4 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     assert "IMPORTED" in res.stdout
     n = int(res.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 14  # every ops and pipeline module, cli, cuda_build
+    assert n >= 15  # every ops and pipeline module, cli, cuda_build

@@ -2,9 +2,11 @@
 
 The plain sweep+select (fastp_tpu_torch.ops.overlap.sweep_select_plain, the
 CUDA kernel's reference) is held exactly to fastp_tpu's sequential-offset
-loop and to its Pallas kernel run in interpret mode; the float32 acceptance
-limit is checked as a table; the CUDA kernel itself is checked against the
-plain version on the card (skipped without one).
+loop and to its Pallas kernel run in interpret mode; the gapped analysis
+(--allow_gap_overlap_trimming) to the loop's allow_gap branch, on rows with
+planted one-base insertions among others; the float32 acceptance limit is
+checked as a table; the CUDA kernel itself is checked against the plain
+version on the card (skipped without one).
 """
 import numpy as np
 import pytest
@@ -79,14 +81,50 @@ def _dirty(seed, B=96, L=160):
     return s1, len1, s2, len2
 
 
-def _port(s1, l1, s2, l2, dl, req, pct):
+def gap_rows(seed, B=48, L=96):
+    """Pairs that overlap with a one-base insertion near the end of the
+    overlap (olen 36..49, four substitutions before it), so that no offset
+    passes the ungapped test and the one-insertion pass accepts.  The
+    extra base sits in read 1 or in rc(read 2), the overlap at a forward or
+    a backward offset.  Returns (s1, len1, s2, len2) as uint8/int32 numpy."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    s1 = np.zeros((B, L), np.uint8)
+    rc2 = np.zeros((B, L), np.uint8)
+    len1 = np.zeros(B, np.int32)
+    len2 = np.zeros(B, np.int32)
+    for r in range(B):
+        n = int(rng.integers(36, 50))
+        ins = rng.choice(acgt, n)
+        ins[n - 1] = acgt[(list(acgt).index(ins[n - 2]) + 1) % 4]
+        p = n - 2
+        norm = np.concatenate([ins[:p], ins[p + 1:n],
+                               [acgt[(list(acgt).index(ins[n - 1]) + 2) % 4]]])
+        for j in rng.choice(p, 4, replace=False):
+            norm[j] = acgt[(list(acgt).index(ins[j]) + 1) % 4]
+        a, b = (ins, norm) if r % 2 == 0 else (norm, ins)   # read 1, rc(read 2)
+        shift = int(rng.integers(0, 12))
+        lead = rng.choice(acgt, shift)
+        if r % 4 < 2:      # forward offset `shift`
+            s1[r, :shift + n] = np.concatenate([lead, a])
+            rc2[r, :n] = b
+            len1[r], len2[r] = shift + n, n
+        else:              # backward offset -shift
+            s1[r, :n] = a
+            rc2[r, :shift + n] = np.concatenate([lead, b])
+            len1[r], len2[r] = n, shift + n
+    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
+    return s1, len1, s2, len2
+
+
+def _port(s1, l1, s2, l2, dl, req, pct, allow_gap=False):
     return t_overlap.analyze(torch.from_numpy(s1), torch.from_numpy(l1),
                              torch.from_numpy(s2), torch.from_numpy(l2),
-                             dl, req, pct)
+                             dl, req, pct, allow_gap)
 
 
-def _same(got, want):
-    for k in KEYS:
+def _same(got, want, keys=KEYS):
+    for k in keys:
         assert np.array_equal(np.asarray(got[k]).astype(np.int64),
                               np.asarray(want[k]).astype(np.int64)), k
 
@@ -133,12 +171,22 @@ def test_float32_limit_table(pct):
         t_overlap.diff_limit_of(torch.from_numpy(olen), 1000, pct).numpy(), wide)
 
 
-def test_gap_overlap_not_ported():
-    s1, l1, s2, l2 = _corpus(0, B=4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_overlap.analyze(torch.from_numpy(s1), torch.from_numpy(l1),
-                          torch.from_numpy(s2), torch.from_numpy(l2),
-                          5, 30, 0.2, allow_gap=True)
+@pytest.mark.parametrize("rows", ["corpus", "dirty", "gap"])
+def test_gapped_matches_analyze_loop(rows):
+    """The ungapped pass plus the one-insertion pass against the loop's
+    allow_gap branch, every key including has_gap."""
+    s1, l1, s2, l2 = {"corpus": lambda: _corpus(9, L=96),
+                      "dirty": lambda: _dirty(10, B=48),
+                      "gap": lambda: gap_rows(11)}[rows]()
+    want = j_overlap._analyze_loop(s1, l1, s2, l2, 5, 30, 0.2, True)
+    _same(_port(s1, l1, s2, l2, 5, 30, 0.2, allow_gap=True), want,
+          KEYS + ("has_gap",))
+    if rows == "gap":   # the planted insertions are found only with a gap
+        has_gap = np.asarray(want["has_gap"])
+        assert has_gap.sum() > len(has_gap) // 2
+        assert (np.asarray(want["offset"])[has_gap] < 0).any()
+        assert not np.asarray(_port(s1, l1, s2, l2, 5, 30, 0.2)[
+            "overlapped"]).any()
 
 
 def test_wrapper_uses_plain_version_on_cpu():
