@@ -4,12 +4,18 @@
 
 Phases, in order; each prints one line, and any failure exits non-zero:
   1. device   -- requires CUDA; prints the card's name and power limit
-  2. build    -- builds the overlap kernel from fastp_tpu_torch/csrc
+  2. build    -- builds the overlap kernel from fastp_tpu_torch/csrc (nvcc)
+                 and the host library from fastp_tpu_torch/native (g++), both
+                 at once; prints what ptxas reports for the kernel
   3. kernel   -- the CUDA overlap kernel against its plain PyTorch version
                  at B=8192, L=160 on bench-like and adversarial rows
                  (exact) at three overlap settings, diff_pct = 0 (the
-                 --overlapped_out re-analysis) among them, with CUDA-event
-                 timings of both
+                 --overlapped_out re-analysis) among them; on adversarial
+                 rows at L=256 (the PE251 width) and at row counts that are
+                 no multiple of the rows a block takes (8192 + 5, 3); the
+                 byte compares the bench rows need and from them the
+                 kernel's bound; CUDA-event timings of the kernel and of the
+                 plain version
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
@@ -28,10 +34,21 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  --allow_gap_overlap_trimming run, of an SE --adapter_fasta
                  run and of an --interleaved_in --stdout run on the card and
                  on the CPU give identical output files (the last one's
-                 standard output too); the gap run is timed on the card
+                 standard output too); the gap run is timed on the card.
+                 The CPU runs ask for the CPU with FASTP_TPU_TORCH_DEVICE=cpu;
+                 one more run, with the card hidden and no such request, must
+                 exit non-zero
 Then a JSON line of the kernel results and, last, the device line.
-The script imports no JAX.
+
+    python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu]
+
+runs phases 1 to 3 alone; with --old-kernel it also builds an earlier
+version of the kernel's source (same C interface), checks it against the
+plain version and times the two in turns (old, new, new, old).
+
+The script imports no JAX and nothing of fastp_tpu.
 """
+import argparse
 import contextlib
 import io
 import json
@@ -41,6 +58,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -51,8 +69,10 @@ import torch  # noqa: E402
 
 from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
+from fastp_tpu_torch.io import native as native_mod  # noqa: E402
 from fastp_tpu_torch.ops import overlap_cuda  # noqa: E402
-from fastp_tpu_torch.ops.overlap import sweep_select_plain  # noqa: E402
+from fastp_tpu_torch.ops.overlap import (COMPLETE_COMPARE_REQUIRE,  # noqa: E402
+                                         sweep_select_plain)
 
 BENCH_FLAGS = ["--correction", "--cut_right",
                "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
@@ -92,6 +112,15 @@ OVERLAP_SETTINGS = ((5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0))
 TIMED_SETTINGS = (OVERLAP_SETTINGS[0], OVERLAP_SETTINGS[2])
 MAIN_PAIRS = 1_000_000
 CPU_PAIRS = 20_000
+# further shapes the kernel is held to the plain version at, on adversarial
+# rows: (B, L), the PE251 width and ragged row counts
+EDGE_SHAPES = ((B + 5, 256), (3, 256), (B + 5, L), (3, L))
+# the card's peaks the bound is reckoned from: HBM3 of the H100 SXM, and byte
+# compares on the integer pipes (132 SMs x 64 INT32 lanes x 4 bytes a 32-bit
+# operation x 1.75 GHz)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BYTE_COMPARES_PER_S = 132 * 64 * 4 * 1.75e9
+DEVICE_ENV = cli.DEVICE_ENV
 
 
 class SmokeFailure(RuntimeError):
@@ -128,7 +157,10 @@ def port_cmd(*args):
 
 
 def port_env(**extra):
+    """The environment of a port process: no device request (so the card)
+    unless `extra` makes one."""
     env = dict(os.environ)
+    env.pop(DEVICE_ENV, None)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env.update(extra)
     return env
@@ -147,12 +179,38 @@ def phase_device():
 
 
 def phase_build():
-    t0 = time.perf_counter()
-    cuda_build.load("overlap_sweep")
-    print("phase build: overlap_sweep built and loaded in %.3f s (%s)"
-          % (time.perf_counter() - t0,
-             os.path.relpath(cuda_build.library_path("overlap_sweep"), ROOT)),
-          flush=True)
+    """nvcc for the kernel and g++ for the host library, started together."""
+    results = {}
+
+    def build(key, fn):
+        t0 = time.perf_counter()
+        try:
+            results[key] = (fn(), time.perf_counter() - t0)
+        except Exception as exc:  # re-raised below, in the main thread
+            results[key] = (exc, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=build, args=(key, fn)) for key, fn in (
+        ("kernel", lambda: cuda_build.load("overlap_sweep")),
+        ("native", native_mod.get_lib))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for key, (res, _) in results.items():
+        if isinstance(res, Exception):
+            raise res
+    check(results["native"][0] is not None,
+          "the host library (fastp_tpu_torch/native) did not build or load")
+    ptxas = [ln.strip() for ln in
+             cuda_build.build_logs.get("overlap_sweep", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print("phase build: overlap_sweep built and loaded in %.3f s (%s), the "
+          "host library in %.3f s (%s); ptxas: %s"
+          % (results["kernel"][1],
+             os.path.relpath(cuda_build.library_path("overlap_sweep"), ROOT),
+             results["native"][1],
+             os.path.relpath(native_mod._lib_path(), ROOT),
+             " | ".join(ptxas) or "not built in this process"), flush=True)
 
 
 def _bench_rows(rng):
@@ -174,10 +232,11 @@ def _bench_rows(rng):
     return seq1, rc2, lens, lens.copy()
 
 
-def _adversarial_rows(rng):
-    """Rows that stress the edges: any byte value (bytes beyond the length
-    are garbage too), lengths below overlap_require, zero lengths, exact
-    full-length overlaps, and overlaps found only among backward offsets."""
+def _adversarial_rows(rng, B=B, L=L):
+    """B rows of width L that stress the edges: any byte value (bytes beyond
+    the length are garbage too), lengths below overlap_require, zero
+    lengths, exact full-length overlaps, overlaps found only among backward
+    offsets, and mismatch counts near the limit."""
     seq1 = rng.integers(0, 256, (B, L)).astype(np.uint8)
     rc2 = rng.integers(0, 256, (B, L)).astype(np.uint8)
     len1 = rng.integers(0, L + 1, B).astype(np.int32)
@@ -210,6 +269,8 @@ def _adversarial_rows(rng):
 
 
 def _median_ms(fn, runs=25):
+    """Median over `runs` of one call between two CUDA events (what a
+    caller sees: the device time and the host's gap before the launch)."""
     for _ in range(3):
         fn()
     times = []
@@ -224,42 +285,202 @@ def _median_ms(fn, runs=25):
     return float(np.median(times))
 
 
-def phase_kernel():
+def _graph_ms(fn, launches=20, replays=15):
+    """Device time of one call of `fn`: `launches` calls captured into one
+    CUDA graph, so that no host gap lies between them; the median over
+    `replays` replays between two CUDA events, divided by `launches`.  The
+    inputs stay in the L2 cache between launches, as they do in the step,
+    where the ops just before the kernel wrote them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _median_ms(graph.replay, replays) / launches
+
+
+def needed_compares(found, offset, overlap_len, len1, len2, overlap_require):
+    """Byte compares the first-accept walk needs on these rows, reckoned
+    from the plain version's outputs (numpy arrays): every forward offset
+    up to the accepted one, or all of them and then the backward offsets up
+    to the accepted one, or all of both for a row that accepts none.
+    Returns (full, prefix): `full` counts each walked offset at its whole
+    overlap; `prefix` at min(overlap, 50) positions, which decide the accept
+    test, plus the whole overlap once for each accepted row (its diff)."""
+    l1, l2 = len1.astype(np.int64), len2.astype(np.int64)
+    off = offset.astype(np.int64)
+    n_f = np.maximum(l1 - overlap_require, 0)
+    n_b = np.maximum(l2 - overlap_require, 0)
+    # offset 0 is shift 0 of the forward walk, or of the backward walk for
+    # a row with no forward candidate (the two compare the same bytes)
+    fwd_hit = found & (off >= 0) & (off < n_f)
+    walked_f = np.where(fwd_hit, off + 1, n_f)
+    walked_b = np.where(fwd_hit, 0, np.where(found, 1 - off, n_b))
+    s = np.arange(max(int(n_f.max()), int(n_b.max()), 1))[None, :]
+    olen_f = np.maximum(np.minimum(l1[:, None] - s, l2[:, None]), 0)
+    olen_b = np.maximum(np.minimum(l1[:, None], l2[:, None] - s), 0)
+    in_f, in_b = s < walked_f[:, None], s < walked_b[:, None]
+    cap = COMPLETE_COMPARE_REQUIRE
+    full = int((olen_f * in_f).sum() + (olen_b * in_b).sum())
+    prefix = int((np.minimum(olen_f, cap) * in_f).sum()
+                 + (np.minimum(olen_b, cap) * in_b).sum()
+                 + overlap_len.astype(np.int64)[found].sum())
+    return full, prefix
+
+
+def kernel_bound(rows_np, want, overlap_require):
+    """The least time the card could take for sweep_select on these rows:
+    the larger of its bytes (each input read once, each output written once)
+    over the memory rate and the byte compares it needs over the integer
+    rate.  Returns a dict of the counts and times (ms)."""
+    seq1, rc2, len1, len2 = rows_np
+    found, offset, ol, diff = (w.cpu().numpy() for w in want)
+    full, prefix = needed_compares(found, offset, ol, len1, len2,
+                                   overlap_require)
+    nbytes = (seq1.nbytes + rc2.nbytes + len1.nbytes + len2.nbytes
+              + found.nbytes + offset.nbytes + ol.nbytes + diff.nbytes)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = prefix / PEAK_BYTE_COMPARES_PER_S * 1e3
+    return {"bytes": nbytes, "compares_needed": prefix,
+            "compares_at_whole_overlaps": full, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms,
+            "operations_ms_at_whole_overlaps":
+                full / PEAK_BYTE_COMPARES_PER_S * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _same_as_plain(got, want, what):
+    """Largest absolute difference over the four outputs; fails unless 0."""
+    worst = 0
+    for key, g, w in zip(("overlapped", "offset", "overlap_len", "diff"),
+                         got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              "kernel %s/%s: %s %s, plain %s %s"
+              % (what, key, g.dtype, tuple(g.shape), w.dtype, tuple(w.shape)))
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) \
+            if g.numel() else 0
+        worst = max(worst, err)
+        check(err == 0, "kernel %s/%s differs from plain (max abs err %d)"
+              % (what, key, err))
+    return worst
+
+
+def _raw_launcher(fn, tensors, setting, warps):
+    """A call of a kernel library's C entry point on preallocated outputs
+    (no wrapper), for timing two builds of the kernel alike.  Returns
+    (call, outputs)."""
+    s1, r2, l1, l2 = tensors
+    rows, width = s1.shape
+    dl, req, pct = setting
+    outs = (torch.empty(rows, dtype=torch.bool, device=s1.device),
+            *(torch.empty(rows, dtype=torch.int32, device=s1.device)
+              for _ in range(3)))
+
+    def call():
+        err = fn(s1.data_ptr(), r2.data_ptr(), l1.data_ptr(), l2.data_ptr(),
+                 rows, width, dl, req, pct, *(o.data_ptr() for o in outs),
+                 warps, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, "overlap_sweep launch failed: CUDA error %d" % err)
+    return call, outs
+
+
+def compare_with_old_kernel(old_source, tensors, want_by_setting):
+    """Builds an earlier version of csrc/overlap_sweep.cu (same C interface,
+    rows of 2 L bytes in shared memory), holds it to the plain version and
+    times it against the current kernel in turns: old, new, new, old."""
+    old_fn = cuda_build.load("overlap_sweep_old", old_source).overlap_sweep
+    new_fn = overlap_cuda._kernel()
+    old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
+    width = tensors[0].shape[1]
+    out = {}
+    for setting in TIMED_SETTINGS:
+        old_call, old_outs = _raw_launcher(old_fn, tensors, setting,
+                                           min(8, 48 * 1024 // (2 * width)))
+        new_call, new_outs = _raw_launcher(new_fn, tensors, setting,
+                                           overlap_cuda.rows_per_block(width))
+        for call, outs, what in ((old_call, old_outs, "old"),
+                                 (new_call, new_outs, "new")):
+            call()
+            torch.cuda.synchronize()
+            _same_as_plain(outs, want_by_setting[setting], what + " build")
+        turns = [("old", old_call), ("new", new_call), ("new", new_call),
+                 ("old", old_call)]
+        out[setting[2]] = [(name, _graph_ms(call)) for name, call in turns]
+    print("old kernel (%s) against the new one, B=%d L=%d, device time per "
+          "launch from CUDA-graph replays of 20 launches, in turns: %s"
+          % (os.path.basename(old_source), B, L, "; ".join(
+              "diff_pct %s: %s" % (pct, ", ".join(
+                  "%s %.4f ms" % t for t in turns))
+              for pct, turns in out.items())), flush=True)
+    return out
+
+
+def phase_kernel(old_source=None):
     rng = np.random.default_rng(42)
     worst = 0
     rows = 0
     accepted = {}
     timing = {}
+    bounds = {}
     for name, rows_np in (("bench", _bench_rows(rng)),
                           ("adversarial", _adversarial_rows(rng))):
-        s1, r2, l1, l2 = (torch.from_numpy(x).cuda() for x in rows_np)
-        for dl, req, pct in OVERLAP_SETTINGS:
-            got = overlap_cuda.sweep_select(s1, r2, l1, l2, dl, req, pct)
+        tensors = tuple(torch.from_numpy(x).cuda() for x in rows_np)
+        wants = {}
+        for setting in OVERLAP_SETTINGS:
+            pct = setting[2]
+            got = overlap_cuda.sweep_select(*tensors, *setting)
             torch.cuda.synchronize()
-            want = sweep_select_plain(s1, r2, l1, l2, dl, req, pct)
-            for key, g, w in zip(("overlapped", "offset", "overlap_len", "diff"),
-                                 got, want):
-                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                worst = max(worst, err)
-                check(err == 0, "kernel %s/%s differs from plain (max abs "
-                      "err %d) at setting %s" % (name, key, err, (dl, req, pct)))
+            want = wants[setting] = sweep_select_plain(*tensors, *setting)
+            worst = max(worst, _same_as_plain(
+                got, want, "%s at %s" % (name, setting)))
             rows += B
             accepted[pct] = accepted.get(pct, 0) + int(got[0].sum())
-            if name == "bench" and (dl, req, pct) in TIMED_SETTINGS:
-                timing[pct] = (
-                    _median_ms(lambda: overlap_cuda.sweep_select(
-                        s1, r2, l1, l2, dl, req, pct)),
-                    _median_ms(lambda: sweep_select_plain(
-                        s1, r2, l1, l2, dl, req, pct)))
+            if name == "bench" and setting in TIMED_SETTINGS:
+                bounds[pct] = kernel_bound(rows_np, want, setting[1])
+                timing[pct] = {
+                    "ms": _graph_ms(lambda: overlap_cuda.sweep_select(
+                        *tensors, *setting)),
+                    "call_ms": _median_ms(lambda: overlap_cuda.sweep_select(
+                        *tensors, *setting)),
+                    "plain_ms": _median_ms(lambda: sweep_select_plain(
+                        *tensors, *setting))}
+        if name == "bench" and old_source:
+            compare_with_old_kernel(old_source, tensors, wants)
     check(all(accepted[pct] > 0 for _, _, pct in OVERLAP_SETTINGS),
           "a setting accepted no row: %s" % accepted)
+    edge = []
+    for rows_n, width in EDGE_SHAPES:
+        tensors = tuple(torch.from_numpy(x).cuda() for x in
+                        _adversarial_rows(rng, B=rows_n, L=width))
+        for setting in OVERLAP_SETTINGS:
+            got = overlap_cuda.sweep_select(*tensors, *setting)
+            torch.cuda.synchronize()
+            worst = max(worst, _same_as_plain(
+                got, sweep_select_plain(*tensors, *setting),
+                "adversarial B=%d L=%d at %s" % (rows_n, width, setting)))
+        rows += rows_n * len(OVERLAP_SETTINGS)
+        edge.append("B=%d L=%d" % (rows_n, width))
     print("phase kernel: overlap_sweep == plain on %d rows (accepted by "
-          "diff_pct: %s), max abs err %d; B=%d L=%d, CUDA events, median of "
-          "25: %s"
-          % (rows, accepted, worst, B, L, "; ".join(
-              "diff_pct %s kernel %.4f ms, plain %.4f ms" % (pct, k, p)
-              for pct, (k, p) in timing.items())), flush=True)
-    return worst, timing
+          "diff_pct: %s; also at %s), max abs err %d; B=%d L=%d: %s"
+          % (rows, accepted, ", ".join(edge), worst, B, L, "; ".join(
+              "diff_pct %s kernel %.4f ms of device time per launch (CUDA-"
+              "graph replays of 20 launches, median of 15), %.4f ms for one "
+              "call between two events, plain %.4f ms (median of 25); needs "
+              "%d byte compares (%d at whole overlaps) and %d bytes, so "
+              "bound %.5f ms by %s (bytes %.5f ms at %.2f TB/s, operations "
+              "%.5f ms at %.1f T byte compares/s), kernel at %.1f%% of it"
+              % (pct, t["ms"], t["call_ms"], t["plain_ms"],
+                 bounds[pct]["compares_needed"],
+                 bounds[pct]["compares_at_whole_overlaps"],
+                 bounds[pct]["bytes"], bounds[pct]["bound_ms"],
+                 bounds[pct]["bound_by"], bounds[pct]["bytes_ms"],
+                 PEAK_BYTES_PER_S / 1e12, bounds[pct]["operations_ms"],
+                 PEAK_BYTE_COMPARES_PER_S / 1e12,
+                 100.0 * bounds[pct]["bound_ms"] / t["ms"])
+              for pct, t in timing.items())), flush=True)
+    return worst, timing, bounds
 
 
 def phase_golden(work):
@@ -298,13 +519,14 @@ def _make_corpus(work):
 
 
 def _run_in_process(argv, cwd):
-    """cli.run in this process with stderr captured; returns (result, log)."""
+    """cli.run on the card in this process with stderr captured; returns
+    (result, log)."""
     log = io.StringIO()
     old = os.getcwd()
     os.chdir(cwd)
     try:
         with contextlib.redirect_stderr(log):
-            res = cli.run(argv)
+            res = cli.run(argv, device="cuda")
     finally:
         os.chdir(old)
     return res, log.getvalue()
@@ -497,7 +719,7 @@ def phase_cpu(work, r1, r2):
     for name in paths:
         cpu_dir = os.path.join(work, "cmp_cpu_" + name)
         os.makedirs(cpu_dir)
-        procs[name] = (cpu_dir, start(name, cpu_dir, CUDA_VISIBLE_DEVICES=""))
+        procs[name] = (cpu_dir, start(name, cpu_dir, **{DEVICE_ENV: "cpu"}))
     compared = []
     for name, (cpu_dir, proc) in procs.items():
         finish(name, proc, "cpu")
@@ -507,39 +729,83 @@ def phase_cpu(work, r1, r2):
             check(os.path.getsize(os.path.join(cpu_dir, f)) > 0,
                   "card vs cpu, %s: %s is empty" % (name, f))
         compared.append("%s (%s)" % (name, ", ".join(files)))
+    refused = _run_without_card(work, paths["main"] + prefix)
     print("phase cpu: the first %d pairs (reads) give identical files on the "
-          "card and on the CPU: %s; card wall and overlap kernel launches: %s"
-          % (CPU_PAIRS, "; ".join(compared), "; ".join(
+          "card and on the CPU (%s=cpu): %s; card wall and overlap kernel "
+          "launches: %s; with the card hidden and no request for the CPU the "
+          "port exits %d and writes nothing"
+          % (CPU_PAIRS, DEVICE_ENV, "; ".join(compared), "; ".join(
               "%s %.3f s, %d" % (name, wall, n)
-              for name, (n, wall) in card.items())), flush=True)
+              for name, (n, wall) in card.items()), refused), flush=True)
     return card
 
 
-def main():
+def _run_without_card(work, args):
+    """The port with no CUDA device visible and no request for the CPU: it
+    must fail at once, naming the variable, and write no output.  Returns
+    its exit code."""
+    d = os.path.join(work, "no_card")
+    os.makedirs(d)
+    res = subprocess.run(port_cmd(*args), cwd=d,
+                         env=port_env(CUDA_VISIBLE_DEVICES="-1"),
+                         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                         text=True)
+    check(res.returncode != 0, "the port ran without a card and without "
+          "%s=cpu:\n%s" % (DEVICE_ENV, res.stderr[-2000:]))
+    check(DEVICE_ENV in res.stderr, "the port's failure without a card does "
+          "not name %s:\n%s" % (DEVICE_ENV, res.stderr[-2000:]))
+    check("running on" not in res.stderr and not os.listdir(d),
+          "the port started a run without a card: %s" % os.listdir(d))
+    return res.returncode
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel-only", action="store_true",
+                        help="phases device, build and kernel alone")
+    parser.add_argument("--old-kernel", metavar="OLD.cu",
+                        help="an earlier version of csrc/overlap_sweep.cu to "
+                             "check and time beside the current one")
+    args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
-    worst, timing = phase_kernel()
-    os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
-        phase_golden(work)
-        r1, r2 = _make_corpus(work)
-        launches = {"main": phase_main(work, r1, r2),
-                    "se": phase_se(work, r1),
-                    "failed": phase_failed(work, r1, r2),
-                    "merge": phase_merge(work, r1, r2)}
-        short_runs = phase_cpu(work, r1, r2)
-        launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
-    shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
-    kernel_ms, plain_ms = timing[OVERLAP_SETTINGS[0][2]]
-    zero_ms, zero_plain_ms = timing[0.0]
+    worst, timing, bounds = phase_kernel(args.old_kernel)
+    launches = {}
+    if not args.kernel_only:
+        os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
+            phase_golden(work)
+            r1, r2 = _make_corpus(work)
+            launches = {"main": phase_main(work, r1, r2),
+                        "se": phase_se(work, r1),
+                        "failed": phase_failed(work, r1, r2),
+                        "merge": phase_merge(work, r1, r2)}
+            short_runs = phase_cpu(work, r1, r2)
+            launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
+        shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
+    main_pct, zero_pct = (setting[2] for setting in TIMED_SETTINGS)
+    t, t0 = timing[main_pct], timing[zero_pct]
+    bound, bound0 = bounds[main_pct], bounds[zero_pct]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",
         "source": "fastp_tpu_torch/csrc/overlap_sweep.cu",
         "replaces": "fastp_tpu/ops/overlap_pallas.py:26",
-        "launches": launches["main"], "launches_per_path": launches,
-        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-        "ms_diff_pct_0": zero_ms, "plain_ms_diff_pct_0": zero_plain_ms}]}))
+        "launches": launches.get("main"), "launches_per_path": launches,
+        "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "share_of_bound": bound["bound_ms"] / t["ms"],
+        "library_ms": None,
+        "library_ms_why": "no single PyTorch call computes the first "
+                          "accepted overlap offset",
+        "call_ms": t["call_ms"], "bound": bound,
+        "ms_diff_pct_0": t0["ms"], "call_ms_diff_pct_0": t0["call_ms"],
+        "plain_ms_diff_pct_0": t0["plain_ms"],
+        "bound_ms_diff_pct_0": bound0["bound_ms"],
+        "share_of_bound_diff_pct_0": bound0["bound_ms"] / t0["ms"]}]}))
+    if args.kernel_only:
+        print("kernel-only run: the main path was not driven")
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,26 +1,344 @@
 """Command-line interface of the PyTorch port.
 
-Follows fastp_tpu/cli.py:main with the same parser, options, early input
-check, evaluator pre-pass (sequence length, adapter detection, validation,
-the split size, the two-colour polyG switch; all skipped for STDIN input),
-the choice of the SE or PE processor and the report lines on stderr.  The
-device is CUDA when torch sees a card, else the CPU; the run names it on
+Follows fastp_tpu/cli.py:main with its own copy of the parser and of the
+options mapping, the early input check, the evaluator pre-pass (sequence
+length, adapter detection, validation, the split size, the two-colour
+polyG switch; all skipped for STDIN input), the choice of the SE or PE
+processor and the report lines on stderr.  The device is CUDA; the CPU is
+taken only when the caller asks for it (`device="cpu"`, or
+FASTP_TPU_TORCH_DEVICE=cpu in the environment), and a run without a card
+and without that request fails at once.  The run names its device on
 stderr.
 """
 from __future__ import annotations
 
+import argparse
+import os
 import sys
 import time
 
 import torch
 
-from fastp_tpu.cli import build_parser, options_from_args
-from fastp_tpu.config import FASTP_TPU_VER, check_file_valid
-from fastp_tpu.evaluator import Evaluator
+from .config import (Options, error_exit, num2qual, check_file_valid,
+                     FASTP_TPU_VER, UMI_LOC_INDEX1, UMI_LOC_INDEX2,
+                     UMI_LOC_READ1, UMI_LOC_READ2, UMI_LOC_PER_INDEX,
+                     UMI_LOC_PER_READ)
+from .evaluator import Evaluator
+
+DEVICE_ENV = "FASTP_TPU_TORCH_DEVICE"
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """The device of a run: CUDA, unless the caller asks for the CPU.
+
+    `device` (from Python) or, when that is None, the environment variable
+    FASTP_TPU_TORCH_DEVICE (`cpu`, `cuda` or `cuda:N`) names it; with
+    neither the device is `cuda`.  A CUDA device that torch cannot see
+    raises: the run never carries on on the CPU unasked."""
+    asked = device if device is not None else os.environ.get(DEVICE_ENV) or None
+    dev = torch.device(asked if asked is not None else "cuda")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("%s: fastp_tpu_torch runs on cpu, cuda or cuda:N "
+                         "(given by the caller or by %s)" % (dev, DEVICE_ENV))
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "fastp_tpu_torch runs on a CUDA device and torch sees none; "
+                "set %s=cpu (or pass device=\"cpu\") to run on the CPU"
+                % DEVICE_ENV)
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError("%s: torch sees %d CUDA device(s)"
+                               % (dev, torch.cuda.device_count()))
+    return dev
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fastp_tpu_torch", add_help=True,
+        description="fastp_tpu_torch: fastp, the all-in-one FASTQ "
+                    "preprocessor, on PyTorch/CUDA")
+    a = p.add_argument
+    # I/O
+    a("-i", "--in1", default="", help="read1 input file name")
+    a("-o", "--out1", default="", help="read1 output file name")
+    a("-I", "--in2", default="", help="read2 input file name")
+    a("-O", "--out2", default="", help="read2 output file name")
+    a("--unpaired1", default="")
+    a("--unpaired2", default="")
+    a("--overlapped_out", default="")
+    a("--failed_out", default="")
+    a("-m", "--merge", action="store_true")
+    a("--merged_out", default="")
+    a("--include_unmerged", action="store_true")
+    a("-6", "--phred64", action="store_true")
+    a("-z", "--compression", type=int, default=4)
+    a("--stdin", action="store_true")
+    a("--stdout", action="store_true")
+    a("--interleaved_in", action="store_true")
+    a("--reads_to_process", type=int, default=0)
+    a("--dont_overwrite", action="store_true")
+    a("--fix_mgi_id", action="store_true")
+    a("-V", "--verbose", action="store_true")
+    # adapter
+    a("-A", "--disable_adapter_trimming", action="store_true")
+    a("-a", "--adapter_sequence", default="auto")
+    a("--adapter_sequence_r2", default="auto")
+    a("--adapter_fasta", default="")
+    a("-2", "--detect_adapter_for_pe", action="store_true")
+    a("--allow_gap_overlap_trimming", action="store_true")
+    # trimming
+    a("-f", "--trim_front1", type=int, default=0)
+    a("-t", "--trim_tail1", type=int, default=0)
+    a("-b", "--max_len1", type=int, default=0)
+    a("-F", "--trim_front2", type=int, default=None)
+    a("-T", "--trim_tail2", type=int, default=None)
+    a("-B", "--max_len2", type=int, default=None)
+    # dedup
+    a("-D", "--dedup", action="store_true")
+    a("--dup_calc_accuracy", type=int, default=None)
+    a("--dont_eval_duplication", action="store_true")
+    # polyG
+    a("-g", "--trim_poly_g", action="store_true")
+    a("--poly_g_min_len", type=int, default=10)
+    a("-G", "--disable_trim_poly_g", action="store_true")
+    # polyX
+    a("-x", "--trim_poly_x", action="store_true")
+    a("--poly_x_min_len", type=int, default=10)
+    # quality cutting
+    a("-5", "--cut_front", action="store_true")
+    a("-3", "--cut_tail", action="store_true")
+    a("-r", "--cut_right", action="store_true")
+    a("-W", "--cut_window_size", type=int, default=4)
+    a("-M", "--cut_mean_quality", type=int, default=20)
+    a("--cut_front_window_size", type=int, default=None)
+    a("--cut_front_mean_quality", type=int, default=None)
+    a("--cut_tail_window_size", type=int, default=None)
+    a("--cut_tail_mean_quality", type=int, default=None)
+    a("--cut_right_window_size", type=int, default=None)
+    a("--cut_right_mean_quality", type=int, default=None)
+    # quality filtering
+    a("-Q", "--disable_quality_filtering", action="store_true")
+    a("-q", "--qualified_quality_phred", type=int, default=15)
+    a("-u", "--unqualified_percent_limit", type=int, default=40)
+    a("-n", "--n_base_limit", type=int, default=5)
+    a("-e", "--average_qual", type=int, default=0)
+    # length filtering
+    a("-L", "--disable_length_filtering", action="store_true")
+    a("-l", "--length_required", type=int, default=15)
+    a("--length_limit", type=int, default=0)
+    # low complexity
+    a("-y", "--low_complexity_filter", action="store_true")
+    a("-Y", "--complexity_threshold", type=int, default=30)
+    # index filtering
+    a("--filter_by_index1", default="")
+    a("--filter_by_index2", default="")
+    a("--filter_by_index_threshold", type=int, default=0)
+    # correction / overlap
+    a("-c", "--correction", action="store_true")
+    a("--overlap_len_require", type=int, default=30)
+    a("--overlap_diff_limit", type=int, default=5)
+    a("--overlap_diff_percent_limit", type=int, default=20)
+    # umi
+    a("-U", "--umi", action="store_true")
+    a("--umi_loc", default="")
+    a("--umi_len", type=int, default=0)
+    a("--umi_prefix", default="")
+    a("--umi_skip", type=int, default=0)
+    a("--umi_delim", default=":")
+    # overrepresentation
+    a("-p", "--overrepresentation_analysis", action="store_true")
+    a("-P", "--overrepresentation_sampling", type=int, default=20)
+    # reporting
+    a("-j", "--json", default="fastp.json")
+    a("-h2", "--html", default="fastp.html")
+    a("-R", "--report_title", default="fastp report")
+    # threading
+    a("-w", "--thread", type=int, default=3)
+    # splitting
+    a("-s", "--split", type=int, default=0)
+    a("-S", "--split_by_lines", type=int, default=0)
+    a("-d", "--split_prefix_digits", type=int, default=4)
+    # deprecated
+    a("--cut_by_quality5", action="store_true")
+    a("--cut_by_quality3", action="store_true")
+    a("--cut_by_quality_aggressive", action="store_true")
+    a("--discard_unmerged", action="store_true")
+    # fastp_tpu extensions
+    a("--batch_size", type=int, default=8192,
+      help="reads per device batch (fastp_tpu extension)")
+    a("--devices", type=int, default=0,
+      help="data-parallel device shards; 0 = all local devices")
+    a("--local_processes", type=int, default=0,
+      help="self-spawn N record-range-sharded processes on this host "
+           "(one per chip on a multi-chip host; merged single report)")
+    return p
+
+
+def options_from_args(args, argv) -> Options:
+    opt = Options()
+    opt.in1 = args.in1
+    opt.in2 = args.in2
+    opt.out1 = args.out1
+    opt.out2 = args.out2
+    opt.unpaired1 = args.unpaired1
+    opt.unpaired2 = args.unpaired2
+    opt.failedOut = args.failed_out
+    opt.overlappedOut = args.overlapped_out
+    if not opt.unpaired2:
+        opt.unpaired2 = opt.unpaired1
+    opt.compression = args.compression
+    opt.readsToProcess = args.reads_to_process
+    opt.phred64 = args.phred64
+    opt.dontOverwrite = args.dont_overwrite
+    opt.inputFromSTDIN = args.stdin
+    opt.outputToSTDOUT = args.stdout
+    opt.interleavedInput = args.interleaved_in
+    opt.verbose = args.verbose
+    opt.fixMGI = args.fix_mgi_id
+
+    opt.duplicate.dedup = args.dedup
+    opt.duplicate.enabled = (not args.dont_eval_duplication) or args.dedup
+    if args.dup_calc_accuracy is None:
+        opt.duplicate.accuracyLevel = 3 if opt.duplicate.dedup else 1
+    else:
+        opt.duplicate.accuracyLevel = min(6, max(1, args.dup_calc_accuracy))
+
+    opt.merge.enabled = args.merge
+    opt.merge.out = args.merged_out
+    opt.merge.includeUnmerged = args.include_unmerged
+
+    opt.adapter.enabled = not args.disable_adapter_trimming
+    opt.adapter.detectAdapterForPE = args.detect_adapter_for_pe
+    opt.adapter.allowGapOverlapTrimming = args.allow_gap_overlap_trimming
+    opt.adapter.sequence = args.adapter_sequence
+    opt.adapter.sequenceR2 = args.adapter_sequence_r2
+    opt.adapter.fastaFile = args.adapter_fasta
+    if (opt.adapter.sequenceR2 == "auto" and not opt.adapter.detectAdapterForPE
+            and opt.adapter.sequence != "auto"):
+        opt.adapter.sequenceR2 = opt.adapter.sequence
+    if opt.adapter.fastaFile:
+        opt.loadFastaAdapters()
+
+    opt.trim.front1 = args.trim_front1
+    opt.trim.tail1 = args.trim_tail1
+    opt.trim.maxLen1 = args.max_len1
+    opt.trim.front2 = args.trim_front2 if args.trim_front2 is not None else opt.trim.front1
+    opt.trim.tail2 = args.trim_tail2 if args.trim_tail2 is not None else opt.trim.tail1
+    opt.trim.maxLen2 = args.max_len2 if args.max_len2 is not None else opt.trim.maxLen1
+
+    if args.trim_poly_g and args.disable_trim_poly_g:
+        error_exit("You cannot enabled both trim_poly_g and disable_trim_poly_g")
+    elif args.trim_poly_g:
+        opt.polyGTrim.enabled = True
+    elif args.disable_trim_poly_g:
+        opt.polyGTrim.enabled = False
+    opt.polyGTrim.minLen = args.poly_g_min_len
+
+    if args.trim_poly_x:
+        opt.polyXTrim.enabled = True
+    opt.polyXTrim.minLen = args.poly_x_min_len
+
+    opt.qualityCut.enabledFront = args.cut_front or args.cut_by_quality5
+    opt.qualityCut.enabledTail = args.cut_tail or args.cut_by_quality3
+    opt.qualityCut.enabledRight = args.cut_right or args.cut_by_quality_aggressive
+    opt.qualityCut.windowSizeShared = args.cut_window_size
+    opt.qualityCut.qualityShared = args.cut_mean_quality
+    opt.qualityCut.windowSizeFront = (args.cut_front_window_size
+                                      if args.cut_front_window_size is not None
+                                      else opt.qualityCut.windowSizeShared)
+    opt.qualityCut.qualityFront = (args.cut_front_mean_quality
+                                   if args.cut_front_mean_quality is not None
+                                   else opt.qualityCut.qualityShared)
+    opt.qualityCut.windowSizeTail = (args.cut_tail_window_size
+                                     if args.cut_tail_window_size is not None
+                                     else opt.qualityCut.windowSizeShared)
+    opt.qualityCut.qualityTail = (args.cut_tail_mean_quality
+                                  if args.cut_tail_mean_quality is not None
+                                  else opt.qualityCut.qualityShared)
+    opt.qualityCut.windowSizeRight = (args.cut_right_window_size
+                                      if args.cut_right_window_size is not None
+                                      else opt.qualityCut.windowSizeShared)
+    opt.qualityCut.qualityRight = (args.cut_right_mean_quality
+                                   if args.cut_right_mean_quality is not None
+                                   else opt.qualityCut.qualityShared)
+
+    opt.qualfilter.enabled = not args.disable_quality_filtering
+    opt.qualfilter.qualifiedQual = num2qual(args.qualified_quality_phred)
+    opt.qualfilter.unqualifiedPercentLimit = args.unqualified_percent_limit
+    opt.qualfilter.avgQualReq = args.average_qual
+    opt.qualfilter.nBaseLimit = args.n_base_limit
+
+    opt.lengthFilter.enabled = not args.disable_length_filtering
+    opt.lengthFilter.requiredLength = args.length_required
+    opt.lengthFilter.maxLength = args.length_limit
+
+    opt.complexityFilter.enabled = args.low_complexity_filter
+    opt.complexityFilter.threshold = min(100, max(0, args.complexity_threshold)) / 100.0
+
+    opt.correction.enabled = args.correction
+    opt.overlapRequire = args.overlap_len_require
+    opt.overlapDiffLimit = args.overlap_diff_limit
+    opt.overlapDiffPercentLimit = args.overlap_diff_percent_limit
+
+    opt.thread = args.thread
+    opt.jsonFile = args.json
+    opt.htmlFile = args.html
+    opt.reportTitle = args.report_title
+
+    opt.split.enabled = args.split > 0 or args.split_by_lines > 0
+    opt.split.digits = args.split_prefix_digits
+    if args.split > 0 and args.split_by_lines > 0:
+        error_exit("You cannot set both splitting by file number (--split) and splitting by file lines (--split_by_lines), please choose either.")
+    if args.split > 0:
+        opt.split.number = args.split
+        opt.split.needEvaluation = True
+        opt.split.byFileNumber = True
+    if args.split_by_lines > 0:
+        lines = args.split_by_lines
+        if lines % 4 != 0:
+            error_exit("Line number (--split_by_lines) should be a multiple of 4")
+        opt.split.size = lines // 4
+        opt.split.needEvaluation = False
+        opt.split.byFileLines = True
+    if opt.inputFromSTDIN or opt.in1 == "/dev/stdin":
+        if opt.split.needEvaluation:
+            error_exit("Splitting by file number is not supported in STDIN mode")
+
+    opt.umi.enabled = args.umi
+    opt.umi.length = args.umi_len
+    opt.umi.prefix = args.umi_prefix
+    opt.umi.skip = args.umi_skip
+    opt.umi.delimiter = args.umi_delim
+    if opt.umi.enabled:
+        umi_loc = args.umi_loc.lower()
+        if not umi_loc:
+            error_exit("You've enabled UMI by (--umi), you should specify the UMI location by (--umi_loc)")
+        if umi_loc not in ("index1", "index2", "read1", "read2", "per_index", "per_read"):
+            error_exit("UMI location can only be index1/index2/read1/read2/per_index/per_read")
+        if not opt.isPaired() and umi_loc in ("index2", "read2"):
+            error_exit("You specified the UMI location as " + umi_loc + ", but the input data is not paired end.")
+        if opt.umi.length == 0 and umi_loc in ("read1", "read2", "per_read"):
+            error_exit("You specified the UMI location as " + umi_loc + ", but the length is not specified (--umi_len).")
+        opt.umi.location = {
+            "index1": UMI_LOC_INDEX1, "index2": UMI_LOC_INDEX2,
+            "read1": UMI_LOC_READ1, "read2": UMI_LOC_READ2,
+            "per_index": UMI_LOC_PER_INDEX, "per_read": UMI_LOC_PER_READ,
+        }[umi_loc]
+
+    opt.overRepAnalysis.enabled = args.overrepresentation_analysis
+    opt.overRepAnalysis.sampling = args.overrepresentation_sampling
+
+    opt.initIndexFiltering(args.filter_by_index1, args.filter_by_index2,
+                           args.filter_by_index_threshold)
+
+    opt.batchSize = args.batch_size
+    # FASTP_TPU_DEVICES supplies the default shard count when --devices is
+    # left at 0 (operator knob, as in fastp_tpu)
+    opt.deviceCount = args.devices or int(os.environ.get(
+        "FASTP_TPU_DEVICES", "0"))
+
+    opt.command = " ".join(argv) + " "
+    return opt
 
 
 def describe_device(device: torch.device) -> str:
@@ -106,12 +424,13 @@ def prepare_options(argv):
     return opt
 
 
-def run(argv) -> dict:
-    """Run one job; returns the processor's result dict (stats, filter
-    result, and the number of batches)."""
+def run(argv, device=None) -> dict:
+    """Run one job on `device` (see resolve_device); returns the
+    processor's result dict (stats, filter result, and the number of
+    batches)."""
     from .pipeline.pe_runner import PairEndProcessor
     from .pipeline.runner import SingleEndProcessor
-    device = default_device()
+    device = resolve_device(device)
     t1 = time.time()
     opt = prepare_options(argv)
     sys.stderr.write("fastp_tpu_torch: running on %s\n" % describe_device(device))
@@ -125,7 +444,7 @@ def run(argv) -> dict:
     return res
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
     if argv is None:
         argv = sys.argv
     if len(argv) == 1:
@@ -136,5 +455,5 @@ def main(argv=None) -> int:
     if len(argv) == 2 and argv[1] in ("-v", "--version"):
         print("fastp %s" % FASTP_TPU_VER)
         return 0
-    run(argv)
+    run(argv, device)
     return 0

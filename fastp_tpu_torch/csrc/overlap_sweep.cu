@@ -3,33 +3,84 @@
 // Replaces the TPU kernel fastp_tpu/ops/overlap_pallas.py:_mm_kernel (the
 // [n_off, B] mismatch matrices mm and mm50, launched twice per batch) together
 // with its consumer fastp_tpu/ops/overlap.py:_select_first_accept.  Here no
-// [B, n_off] matrix reaches device memory: each pair row walks its offsets
-// in the reference's order and stops at the first accepted one, which gives
-// the same answer as the full sweep because the first accept wins.
+// [B, n_off] matrix reaches device memory: each pair row finds the first
+// accepted offset in the reference's order (all forward offsets, then all
+// backward ones), which gives the same answer as the full sweep because the
+// first accept wins.
 //
 // For pair row r, forward offset t (t < len1 - overlap_require):
 //   olen = min(len1 - t, len2), compare seq1[t + i] with rc2[i] for i < olen;
 // then backward offsets k = 0, 1, ... (k < len2 - overlap_require):
 //   olen = min(len1, len2 - k), compare rc2[k + i] with seq1[i], offset = -k.
 // An offset is accepted when mm50 <= limit and (mm <= limit or olen > 50),
-// with limit = min(diff_limit, (int)(float(olen) * diff_pct)) in float32.
+// with limit = min(diff_limit, (int)(float(olen) * diff_pct)) in float32,
+// mm the mismatches over i < olen and mm50 those over i < min(olen, 50).
 //
-// Design: one warp per pair row; the row's two byte strings (2 L bytes) are
-// staged in shared memory; the lanes split the positions of one offset, a
-// warp reduction sums the two mismatch counts, and the accept test is
-// warp-uniform, so the whole warp breaks together.
+// What bounds it on the card.  A batch (B = 8192, L = 160) is 2.6 MB of
+// input and 0.1 MB of output, under a microsecond of memory traffic, so the
+// kernel is bound by operations: up to 2 x 130 offsets per row, each a byte
+// compare over the overlap.  The integer pipes compare four bytes per 32-bit
+// operation, which puts the whole sweep at a few microseconds; what a kernel
+// loses beyond that is instruction overhead per byte, serial dependence
+// between offsets, and idle lanes.
 //
-// What bounds it on the card: per batch (B = 8192, L = 160) at most
-// 8192 x 2 x 130 x 160 ~ 340 M byte compares over 2.6 MB of input, and far
-// fewer with the early stop.  That is well under a millisecond of either
-// bandwidth or issue rate, so latency (the serial offset walk per row) and the
-// launch itself dominate, not memory bandwidth.
+// What the design does about it:
+//  * The accept test needs only the first 50 positions.  For olen <= 50 the
+//    two counts are the same number, and for olen > 50 the test is
+//    mm50 <= limit alone, so "accepted" is mm50 <= limit for every olen.
+//    The sweep therefore counts min(olen, 50) positions per offset (13 words
+//    at most, not 40), and the full count mm, which only the `diff` output
+//    needs, is taken once per row, at the winning offset.
+//  * A lane takes an offset, not a position.  One warp owns one pair row; its
+//    32 lanes test 32 consecutive offsets at once, each lane keeping its own
+//    count in a register, so there is no warp reduction per offset.  One
+//    __ballot_sync of the accept flags and __ffs give the lowest accepted
+//    offset of the round, which is the reference's first accept.  Forward
+//    rounds come first (5 at most at L = 160), and a row runs the backward
+//    rounds only when no forward offset was accepted: 10 rounds at most in
+//    place of 260 serial steps with two reductions each.
+//  * Four bytes per instruction.  Both strings of a row are staged in shared
+//    memory (16-byte loads where the row allows it), in rows padded so that
+//    a word read may run past the string's end.  A lane reads the fixed
+//    string word by word (every lane the same address: a broadcast) and the
+//    shifted string at byte offset t + 4w as two aligned words joined by
+//    __funnelshift_r, the upper word of one step being the lower word of the
+//    next, so each step costs one new load per string.  Neighbouring lanes
+//    read neighbouring bytes, so a round touches eight consecutive words and
+//    no bank twice.  Differing bytes of a word are counted with a carry trick
+//    and __popc; the last word is masked to the overlap's end.  Bytes past a
+//    row's length may hold anything and never reach a count.
+//  * A round ends as soon as it is decided.  limit <= diff_limit, so a lane
+//    whose count has passed diff_limit is rejected whatever follows; after
+//    each word one __any_sync asks whether any lane is still undecided, and
+//    the warp leaves the round's loop together when none is.  Unrelated
+//    strings differ in most positions, so a round without an overlap ends
+//    after three or four words instead of thirteen.
+//  * The winner's full count is split over the warp's lanes by word and
+//    summed with one __reduce_add_sync per row.
+// Measured on an H100 (chip_smoke.py, B = 8192, L = 160, bench-like rows):
+// 0.012 ms of device time per launch, against 0.162 ms for the earlier
+// kernel (one warp per row walking the offsets one by one, a byte per
+// instruction, two warp reductions per offset) in the same run, and
+// 0.0175 ms before rounds ended early.  What is left is instruction issue
+// (some hundreds of warp instructions per row) and the launch itself; the
+// wrapper's call takes longer on the host than the kernel on the card.
+// Persistent blocks, TMA and clusters were not tried: the input is a few
+// megabytes and one wave of blocks (B / 8 = 1024 blocks of 8 warps on 132
+// SMs) covers the batch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kCompleteCompareRequire = 50;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Bytes of a padded shared-memory row: L rounded up to 16, plus 16, so that
+// the word after the last byte of a string (and the one after it) exists.
+__host__ __device__ __forceinline__ int row_stride(int L) {
+  return ((L + 15) & ~15) + 16;
+}
 
 __device__ __forceinline__ int limit_of(int olen, int diff_limit, float diff_pct) {
   const int oc = olen > 0 ? olen : 0;
@@ -37,19 +88,100 @@ __device__ __forceinline__ int limit_of(int olen, int diff_limit, float diff_pct
   return lim < diff_limit ? lim : diff_limit;
 }
 
-// Mismatches a[i] != b[i] over i < olen (total) and over i < 50 (pre50),
-// summed across the warp; every lane gets both sums.
-__device__ __forceinline__ void count_mismatch(const uint8_t* a, const uint8_t* b,
-                                               int olen, int lane,
-                                               int* total, int* pre50) {
-  unsigned t = 0, p = 0;
-  for (int i = lane; i < olen; i += 32) {
-    const unsigned m = a[i] != b[i];
-    t += m;
-    p += (i < kCompleteCompareRequire) ? m : 0u;
+// Number of non-zero bytes of x.
+__device__ __forceinline__ int nonzero_bytes(unsigned x) {
+  const unsigned carry = (x & 0x7f7f7f7fu) + 0x7f7f7f7fu;  // bit 7: low bits set
+  return __popc((carry | x) & 0x80808080u);
+}
+
+// Mask of the first n bytes of a little-endian word, 0 <= n <= 3.
+__device__ __forceinline__ unsigned first_bytes(int n) {
+  return (1u << (8 * n)) - 1u;
+}
+
+constexpr int kPrefixWords = (kCompleteCompareRequire + 3) / 4;
+
+// Mismatches x[t + i] != y[i] over i < n for each lane's own t and n
+// (0 <= n <= 50; a lane with n == 0 reads nothing): x32 and y32 are the
+// staged strings as words.  Called by the whole warp, which leaves the loop
+// together once no lane can still be accepted: a lane whose count has passed
+// diff_limit cannot be (limit <= diff_limit), and its count is then only a
+// lower bound, which the accept test still rejects.
+__device__ __forceinline__ int count_prefix(const uint32_t* x32, const uint32_t* y32,
+                                            int t, int n, int diff_limit) {
+  const int q = t >> 2;
+  const unsigned sh = 8u * (t & 3);
+  int mm = 0;
+  uint32_t lo = n > 0 ? x32[q] : 0u;
+#pragma unroll
+  for (int w = 0; w < kPrefixWords; ++w) {
+    const int left = n - 4 * w;  // positions still to count, this word's included
+    if (left > 0) {
+      const uint32_t hi = x32[q + w + 1];
+      uint32_t d = __funnelshift_r(lo, hi, sh) ^ y32[w];
+      if (left < 4) d &= first_bytes(left);
+      mm += nonzero_bytes(d);
+      lo = hi;
+    }
+    if (!__any_sync(kFullMask, left > 4 && mm <= diff_limit)) break;
   }
-  *total = static_cast<int>(__reduce_add_sync(0xffffffffu, t));
-  *pre50 = static_cast<int>(__reduce_add_sync(0xffffffffu, p));
+  return mm;
+}
+
+// First accepted shift s of x against y among 0 <= s < lx - overlap_require,
+// 32 shifts a round: returns true and sets *shift and *olen (warp-uniform).
+__device__ __forceinline__ bool first_accept(const uint32_t* x32, const uint32_t* y32,
+                                             int lx, int ly, int overlap_require,
+                                             int diff_limit, float diff_pct, int lane,
+                                             int* shift, int* olen_out) {
+  const int n_cand = lx - overlap_require;
+  for (int base = 0; base < n_cand; base += 32) {
+    const int s = base + lane;
+    const int olen = min(lx - s, ly);
+    const bool cand = s < n_cand;
+    const int n = cand ? min(max(olen, 0), kCompleteCompareRequire) : 0;
+    const int mm50 = count_prefix(x32, y32, s, n, diff_limit);
+    const bool accept = cand && mm50 <= limit_of(olen, diff_limit, diff_pct);
+    const unsigned votes = __ballot_sync(kFullMask, accept);
+    if (votes) {
+      const int win = base + __ffs(votes) - 1;
+      *shift = win;
+      *olen_out = min(lx - win, ly);
+      return true;
+    }
+  }
+  return false;
+}
+
+// Mismatches x[t + i] != y[i] over i < olen, the words split over the lanes
+// of the warp; every lane gets the sum.
+__device__ __forceinline__ int count_total(const uint32_t* x32, const uint32_t* y32,
+                                           int t, int olen, int lane) {
+  const int q = t >> 2;
+  const unsigned sh = 8u * (t & 3);
+  const int words = (olen + 3) >> 2;
+  unsigned mm = 0;
+  for (int w = lane; w < words; w += 32) {
+    uint32_t d = __funnelshift_r(x32[q + w], x32[q + w + 1], sh) ^ y32[w];
+    const int left = olen - 4 * w;
+    if (left < 4) d &= first_bytes(left);
+    mm += nonzero_bytes(d);
+  }
+  return static_cast<int>(__reduce_add_sync(kFullMask, mm));
+}
+
+// Copies one L-byte row into its padded shared-memory row and zeroes the pad.
+__device__ __forceinline__ void stage_row(uint8_t* dst, const uint8_t* src, int L,
+                                          int stride, bool vec, int lane) {
+  if (vec) {  // L is a multiple of 16 and src is 16-byte aligned
+    const uint4* s16 = reinterpret_cast<const uint4*>(src);
+    uint4* d16 = reinterpret_cast<uint4*>(dst);
+    const int n = L >> 4;
+    for (int i = lane; i < (stride >> 4); i += 32)
+      d16[i] = i < n ? s16[i] : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    for (int i = lane; i < stride; i += 32) dst[i] = i < L ? src[i] : uint8_t{0};
+  }
 }
 
 __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
@@ -57,73 +189,58 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
                                      const int32_t* __restrict__ len1,
                                      const int32_t* __restrict__ len2,
                                      int B, int L, int diff_limit,
-                                     int overlap_require, float diff_pct,
+                                     int overlap_require, float diff_pct, bool vec,
                                      bool* __restrict__ overlapped,
                                      int32_t* __restrict__ offset,
                                      int32_t* __restrict__ overlap_len,
                                      int32_t* __restrict__ diff) {
-  extern __shared__ uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= B) return;  // warp-uniform
+  if (row >= B) return;  // warp-uniform; no block-wide barrier follows
 
-  uint8_t* a = smem + static_cast<size_t>(warp) * 2 * L;
-  uint8_t* b = a + L;
-  const uint8_t* s1 = seq1 + static_cast<size_t>(row) * L;
-  const uint8_t* s2 = rc2 + static_cast<size_t>(row) * L;
-  for (int i = lane; i < L; i += 32) {
-    a[i] = s1[i];
-    b[i] = s2[i];
-  }
+  const int stride = row_stride(L);
+  uint8_t* a = smem + static_cast<size_t>(warp) * 2 * stride;
+  uint8_t* b = a + stride;
+  stage_row(a, seq1 + static_cast<size_t>(row) * L, L, stride, vec, lane);
+  stage_row(b, rc2 + static_cast<size_t>(row) * L, L, stride, vec, lane);
   __syncwarp();
+  const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
+  const uint32_t* b32 = reinterpret_cast<const uint32_t*>(b);
 
   // lengths lie in [0, L] for every caller; clamp so a bad one cannot read
   // outside the staged row
   const int l1 = min(max(len1[row], 0), L);
   const int l2 = min(max(len2[row], 0), L);
 
-  bool found = false;
-  int off = 0, ol = 0, df = 0;
-  for (int t = 0; t < l1 - overlap_require; ++t) {
-    const int olen = min(l1 - t, l2);
-    int total, pre50;
-    count_mismatch(a + t, b, olen, lane, &total, &pre50);
-    const int lim = limit_of(olen, diff_limit, diff_pct);
-    if (pre50 <= lim && (total <= lim || olen > kCompleteCompareRequire)) {
-      found = true;
-      off = t;
-      ol = olen;
-      df = total;
-      break;
-    }
-  }
-  if (!found) {
-    for (int k = 0; k < l2 - overlap_require; ++k) {
-      const int olen = min(l1, l2 - k);
-      int total, pre50;
-      count_mismatch(b + k, a, olen, lane, &total, &pre50);
-      const int lim = limit_of(olen, diff_limit, diff_pct);
-      if (pre50 <= lim && (total <= lim || olen > kCompleteCompareRequire)) {
-        found = true;
-        off = -k;
-        ol = olen;
-        df = total;
-        break;
-      }
+  int shift = 0, ol = 0, off = 0, df = 0;
+  bool found = first_accept(a32, b32, l1, l2, overlap_require, diff_limit,
+                            diff_pct, lane, &shift, &ol);
+  if (found) {
+    off = shift;
+    df = count_total(a32, b32, shift, ol, lane);
+  } else {
+    found = first_accept(b32, a32, l2, l1, overlap_require, diff_limit,
+                         diff_pct, lane, &shift, &ol);
+    if (found) {
+      off = -shift;
+      df = count_total(b32, a32, shift, ol, lane);
     }
   }
   if (lane == 0) {
     overlapped[row] = found;
-    offset[row] = off;
-    overlap_len[row] = ol;
-    diff[row] = df;
+    offset[row] = found ? off : 0;
+    overlap_len[row] = found ? ol : 0;
+    diff[row] = found ? df : 0;
   }
 }
 
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
+// A block takes `warps_per_block` rows and 2 * row_stride(L) bytes of shared
+// memory for each (the wrapper keeps that under the 48 KB default).
 extern "C" int overlap_sweep(const void* seq1, const void* rc2, const void* len1,
                              const void* len2, int B, int L, int diff_limit,
                              int overlap_require, float diff_pct,
@@ -131,12 +248,15 @@ extern "C" int overlap_sweep(const void* seq1, const void* rc2, const void* len1
                              void* diff, int warps_per_block, void* stream) {
   if (B <= 0) return 0;
   const int grid = (B + warps_per_block - 1) / warps_per_block;
-  const size_t smem = static_cast<size_t>(warps_per_block) * 2 * L;
+  const size_t smem = static_cast<size_t>(warps_per_block) * 2 * row_stride(L);
+  const bool vec = (L & 15) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(seq1) |
+                     reinterpret_cast<uintptr_t>(rc2)) & 15) == 0;
   overlap_sweep_kernel<<<grid, warps_per_block * 32, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seq1), static_cast<const uint8_t*>(rc2),
       static_cast<const int32_t*>(len1), static_cast<const int32_t*>(len2), B, L,
-      diff_limit, overlap_require, diff_pct, static_cast<bool*>(overlapped),
+      diff_limit, overlap_require, diff_pct, vec, static_cast<bool*>(overlapped),
       static_cast<int32_t*>(offset), static_cast<int32_t*>(overlap_len),
       static_cast<int32_t*>(diff));
   return static_cast<int>(cudaGetLastError());

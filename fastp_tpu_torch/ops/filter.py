@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from fastp_tpu.config import (PASS_FILTER, FAIL_N_BASE, FAIL_LENGTH,
+from ..config import (PASS_FILTER, FAIL_N_BASE, FAIL_LENGTH,
                               FAIL_TOO_LONG, FAIL_QUALITY, FAIL_COMPLEXITY)
 
 from .common import I32, pos_iota, N

@@ -3,8 +3,18 @@
 Replaces the TPU kernel fastp_tpu/ops/overlap_pallas.py:_mm_kernel and its
 consumer fastp_tpu/ops/overlap.py:_select_first_accept with one fused
 launch per batch: the offset sweep and the first-accept selection, so no
-[B, n_off] mismatch matrix is written to device memory.  What bounds it on
-the card is latency and launch overhead, not bandwidth (see the source).
+[B, n_off] mismatch matrix is written to device memory.
+
+A batch is a few megabytes, so the card bounds the kernel by operations
+(byte compares), not by bytes moved.  The design spends as few
+instructions per compare as it can: a warp owns a pair row and each lane
+one offset, so 32 offsets are tested at once with no reduction between
+them; the strings sit in shared memory as 32-bit words and four bytes are
+compared per operation; and because the accept test depends only on the
+first 50 positions of an overlap, the sweep reads no more than those (and
+stops a round once every lane's count has passed diff_limit), the full
+mismatch count being taken once, at the winning offset (the source's header
+note has the argument, the details and the measured times).
 
 `sweep_select` runs the kernel for CUDA tensors and the plain PyTorch
 version (ops/overlap.py:sweep_select_plain) only for CPU tensors.  It
@@ -19,6 +29,7 @@ import torch
 from .overlap import sweep_select_plain
 
 _SMEM_BUDGET = 48 * 1024  # default dynamic shared memory per block
+MAX_ROWS_PER_BLOCK = 8     # one warp per pair row
 _fn = None
 
 
@@ -32,6 +43,22 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def padded_row_bytes(L: int) -> int:
+    """Bytes of one staged string in shared memory (csrc/overlap_sweep.cu:
+    row_stride): L rounded up to 16, plus 16 for the words read past the
+    string's end."""
+    return -(-L // 16) * 16 + 16
+
+
+def rows_per_block(L: int) -> int:
+    """Pair rows (warps) a block takes at width L: two staged strings per
+    row within the default shared-memory budget, 8 at most; 0 when not
+    even one row fits."""
+    if L <= 0:
+        return 0
+    return min(MAX_ROWS_PER_BLOCK, _SMEM_BUDGET // (2 * padded_row_bytes(L)))
 
 
 def _check(name, t, dtype, shape, device):
@@ -66,14 +93,16 @@ def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
     _check("rc2", rc2, torch.uint8, (B, L), dev)
     _check("len1", len1, torch.int32, (B,), dev)
     _check("len2", len2, torch.int32, (B,), dev)
-    if not 0 < 2 * L <= _SMEM_BUDGET:
+    warps = rows_per_block(L)
+    if warps < 1:
         raise ValueError("read width %d is outside the kernel's shared-memory "
                          "row budget" % L)
-    warps = min(8, _SMEM_BUDGET // (2 * L))  # pair rows (warps) per block
     found = torch.empty(B, dtype=torch.bool, device=dev)
     offset = torch.empty(B, dtype=torch.int32, device=dev)
     overlap_len = torch.empty(B, dtype=torch.int32, device=dev)
     diff = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return found, offset, overlap_len, diff  # nothing to launch
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastp_tpu.config import PASS_FILTER, FILTER_RESULT_TYPES
-from fastp_tpu.pipeline.static_cfg import DeviceCfg
+from ..config import PASS_FILTER, FILTER_RESULT_TYPES
+from .static_cfg import DeviceCfg
 
 from ..ops import adapter as adapter_ops
 from ..ops import correct as correct_ops

@@ -4,8 +4,8 @@ Counterpart of fastp_tpu/pipeline/pe_runner.py, lean or not: two input
 files or one interleaved stream, merging, unpaired/failed/overlapped/split
 outputs and interleaved or merged stdout.  The batch loop is synchronous:
 read -> host pre-ops -> torch step (outputs copied to numpy) -> routing ->
-writers.  Routing is fastp_tpu's route_pe (reused by import) where the
-native library loaded, else the per-row loop below, as in fastp_tpu.
+writers.  Routing is route_pe (pipeline/pe_route.py) where the native
+library loaded, else the per-row loop below, as in fastp_tpu.
 """
 from __future__ import annotations
 
@@ -14,21 +14,22 @@ from typing import Dict
 
 import numpy as np
 
-from fastp_tpu.config import Options, FAILED_TYPES, PASS_FILTER
-from fastp_tpu.io import native as native_mod
-from fastp_tpu.io.fastq import ArrayBatch, OutputWriter, open_batch_reader
-from fastp_tpu.report.filter_model import FilterResult
-from fastp_tpu.report.htmlreport import HtmlReporter
-from fastp_tpu.report.jsonreport import JsonReporter
-from fastp_tpu.report.stats_model import Stats, cpp_num
-from fastp_tpu.utils.readname import fix_mgi
-from fastp_tpu.pipeline.hostview import (PairWindowView, host_analyze_overlap,
+from ..config import Options, FAILED_TYPES, PASS_FILTER
+from ..io import native as native_mod
+from ..io.fastq import ArrayBatch, OutputWriter, open_batch_reader
+from ..report.filter_model import FilterResult
+from ..report.htmlreport import HtmlReporter
+from ..report.jsonreport import JsonReporter
+from ..report.stats_model import Stats, cpp_num
+from ..utils.log import loginfo
+from ..utils.readname import fix_mgi
+from .hostview import (PairWindowView, host_analyze_overlap,
                                          host_correct_pair)
-from fastp_tpu.pipeline.pe_route import route_pe
+from .pe_route import route_pe
 
 from .device import build_pe_step, make_aux
 from .runner import (BaseProcessor, SplitWriterSet, _OverRepCounter,
-                     _round_width, group_pair_slices, group_slices)
+                     _round_width, group_pair_slices, record_adapter_hits)
 
 # the PE path's file streams, in the order fastp_tpu writes them; --stdout
 # takes "merged" with --merge, else "single", the interleaved pairs
@@ -173,12 +174,10 @@ class PairEndProcessor(BaseProcessor):
             pairs_seen += B
             self.batches += 1
             if opt.verbose and pairs_seen >= last_reported + 1000000:
-                from fastp_tpu.utils.log import loginfo
                 last_reported = pairs_seen
                 loginfo("Read1: loaded %dM reads" % (pairs_seen // 1000000))
                 loginfo("Read2: loaded %dM reads" % (pairs_seen // 1000000))
         if opt.verbose:
-            from fastp_tpu.utils.log import loginfo
             loginfo("batch loop done (%d pairs)" % pairs_seen)
         source.close()
         for wtr in writers.values():
@@ -496,45 +495,13 @@ class PairEndProcessor(BaseProcessor):
             pres = out[pre_key][frows].astype(np.int64)
             tfs = tfa[frows].astype(np.int64)
             hcs = hc[frows] if hc is not None else np.zeros(frows.size, bool)
-            entries = []  # explicit strings: (idx, str, count)
-            neg = ps < 0
-            negrows = np.flatnonzero(neg)
-            if negrows.size:  # adapter clipped at the read start
-                uniq, first, counts = np.unique(
-                    ps[negrows], return_index=True, return_counts=True)
-                for k in range(uniq.size):
-                    entries.append((int(negrows[first[k]]),
-                                    aseq[:len(aseq) + int(uniq[k])].decode(),
-                                    int(counts[k])))
             # rows with corrections inside the adapter region need the
             # correction-aware per-row view
-            for j in np.flatnonzero(~neg & hcs).tolist():
-                entries.append((j, slicer(int(frows[j]), int(ps[j]),
-                                          int(pres[j])).decode("latin-1"), 1))
-            nrm = np.flatnonzero(~neg & ~hcs)
-            entries.sort(key=lambda t: t[0])
-            lo = tfs + ps
-            hi = tfs + pres
-            if fr._adrec is not None:
-                # merged walk in row order: normal segments go to the native
-                # recorder in bulk, explicit strings one by one
-                start = 0
-                for idx, s, c in entries + [(len(found) + 1, "", 0)]:
-                    seg = nrm[(nrm >= start) & (nrm < idx)]
-                    if seg.size:
-                        fr.add_adapter_trimmed_rows_bulk(
-                            ba, frows[seg], lo[seg], hi[seg], is_r2)
-                    if s:
-                        fr.add_adapter_trimmed(s, is_r2, count=c)
-                    start = idx
-            else:
-                if nrm.size:
-                    for p0, bb, c in group_slices(ba, frows[nrm], lo[nrm],
-                                                  hi[nrm]):
-                        entries.append((int(nrm[p0]), bb.decode("latin-1"), c))
-                entries.sort(key=lambda t: t[0])
-                for _, s, c in entries:
-                    fr.add_adapter_trimmed(s, is_r2, count=c)
+            explicit = [(j, slicer(int(frows[j]), int(ps[j]),
+                                   int(pres[j])).decode("latin-1"))
+                        for j in np.flatnonzero((ps >= 0) & hcs).tolist()]
+            record_adapter_hits(fr, ba, frows, ps, tfs + ps, tfs + pres, aseq,
+                                is_r2, explicit)
 
     def _patch_corrections(self, batch1: ArrayBatch, batch2: ArrayBatch,
                            out, B: int):

@@ -1,8 +1,8 @@
 """Streaming SE processor and the host helpers both processors share.
 
-JAX-free copies of fastp_tpu/pipeline/runner.py (that module imports the
-JAX step at import time): width rounding, the index blacklist match,
-grouped adapter-slice recording, the overrepresented-sequence counter, a
+The port's counterpart of fastp_tpu/pipeline/runner.py: width rounding,
+the index blacklist match, grouped adapter-slice recording (one function
+for the SE and the PE processor), the overrepresented-sequence counter, a
 BaseProcessor that keeps the host state, batch padding, the index-drop
 masks and the stat printers, the single-end processor and the split-output
 writer set.  The JAX staging, fetch pools, on-device accumulator and input
@@ -10,23 +10,26 @@ packers are not carried over: the batch loop is synchronous.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 from typing import Dict, List
 
 import numpy as np
 
-from fastp_tpu.config import Options, PASS_FILTER, FAILED_TYPES
-from fastp_tpu.duplicate import Duplicate
-from fastp_tpu.io import native as native_mod
-from fastp_tpu.io.fastq import OutputWriter, open_batch_reader
-from fastp_tpu.report.filter_model import FilterResult
-from fastp_tpu.report.htmlreport import HtmlReporter
-from fastp_tpu.report.jsonreport import JsonReporter
-from fastp_tpu.report.stats_model import Stats, cpp_num
-from fastp_tpu.umi import UmiProcessor
-from fastp_tpu.utils.readname import first_index, fix_mgi, last_index
-from fastp_tpu.pipeline.static_cfg import device_cfg_from_options
+from ..config import (Options, PASS_FILTER, FAILED_TYPES, FAIL_QUALITY,
+                      FAIL_N_BASE, FAIL_LENGTH, FAIL_TOO_LONG, FAIL_COMPLEXITY)
+from ..duplicate import Duplicate
+from ..io import native as native_mod
+from ..io.fastq import OutputWriter, open_batch_reader
+from ..report.filter_model import FilterResult
+from ..report.htmlreport import HtmlReporter
+from ..report.jsonreport import JsonReporter
+from ..report.stats_model import Stats, cpp_num
+from ..umi import UmiProcessor
+from ..utils.log import loginfo
+from ..utils.readname import first_index, fix_mgi, last_index
+from .static_cfg import device_cfg_from_options
 
 from .device import build_se_step, make_aux
 
@@ -111,6 +114,54 @@ def group_pair_slices(ba1, lo1, hi1, ba2, lo2, hi2, rows):
     return out
 
 
+def record_adapter_hits(fr: FilterResult, bases: np.ndarray, frows, ps, lo, hi,
+                        aseq: bytes, is_r2: bool, explicit=()):
+    """By-sequence adapter recording (FilterResult::addAdapterTrimmed) for
+    the rows `frows` of one mate, in row order.
+
+    ps: the hit position per row (negative: the adapter is clipped at the
+    read start, and the recorded string is the adapter's own prefix);
+    lo/hi: the recorded slice of `bases` per row otherwise; `explicit`:
+    (index into frows, string) for rows whose string the caller made
+    itself.  The other rows are grouped by slice content (group_slices), or
+    streamed to the native recorder in bulk between the explicit strings."""
+    entries = []  # explicit strings: (idx, str, count)
+    neg = ps < 0
+    negrows = np.flatnonzero(neg)
+    if negrows.size:  # adapter clipped at the read start
+        uniq, first, counts = np.unique(ps[negrows], return_index=True,
+                                        return_counts=True)
+        for k in range(uniq.size):
+            entries.append((int(negrows[first[k]]),
+                            aseq[:len(aseq) + int(uniq[k])].decode(),
+                            int(counts[k])))
+    own = neg.copy()
+    for j, text in explicit:
+        entries.append((j, text, 1))
+        own[j] = True
+    nrm = np.flatnonzero(~own)
+    entries.sort(key=lambda t: t[0])
+    if fr._adrec is not None:
+        # merged walk in row order: normal segments go to the native
+        # recorder in bulk, explicit strings one by one
+        start = 0
+        for idx, text, c in entries + [(frows.size + 1, "", 0)]:
+            seg = nrm[(nrm >= start) & (nrm < idx)]
+            if seg.size:
+                fr.add_adapter_trimmed_rows_bulk(
+                    bases, frows[seg], lo[seg], hi[seg], is_r2)
+            if text:
+                fr.add_adapter_trimmed(text, is_r2, count=c)
+            start = idx
+    else:
+        if nrm.size:
+            for p0, bb, c in group_slices(bases, frows[nrm], lo[nrm], hi[nrm]):
+                entries.append((int(nrm[p0]), bb.decode("latin-1"), c))
+        entries.sort(key=lambda t: t[0])
+        for _, text, c in entries:
+            fr.add_adapter_trimmed(text, is_r2, count=c)
+
+
 class _OverRepCounter:
     """Overrepresented-sequence counting on sampled reads
     (reference: src/stats.cpp:312-329).  Scanning runs in the native
@@ -124,7 +175,6 @@ class _OverRepCounter:
         self.eval_len = stats.evaluated_seq_len
         self._h = None
         if self.enabled:
-            from fastp_tpu.io import native as native_mod
             lib = native_mod.get_lib()
             if lib is not None:
                 self._lib = lib
@@ -267,8 +317,6 @@ class BaseProcessor:
         B = batch1.n
         if not self.opt.indexFilter.enabled:
             return np.zeros(B, bool)
-        import ctypes
-        from fastp_tpu.io import native as native_mod
         lib = native_mod.get_lib()
         if lib is None:
             return self._index_drop_mask(
@@ -312,8 +360,6 @@ class BaseProcessor:
     def _print_filter_result(self):
         fr = self.filter_result
         opt = self.opt
-        from fastp_tpu.config import (FAIL_QUALITY, FAIL_N_BASE, FAIL_LENGTH,
-                                      FAIL_TOO_LONG, FAIL_COMPLEXITY)
         w = sys.stderr.write
         w("reads passed filter: %d\n" % fr.filter_read_stats[PASS_FILTER])
         w("reads failed due to low quality: %d\n" % fr.filter_read_stats[FAIL_QUALITY])
@@ -384,11 +430,9 @@ class SingleEndProcessor(BaseProcessor):
             reads_seen += batch.n
             self.batches += 1
             if opt.verbose and reads_seen >= last_reported + 1000000:
-                from fastp_tpu.utils.log import loginfo
                 last_reported = reads_seen
                 loginfo("loaded %dM reads" % (reads_seen // 1000000))
         if opt.verbose:
-            from fastp_tpu.utils.log import loginfo
             loginfo("batch loop done (%d reads)" % reads_seen)
         reader.close()
         for wtr in (out_writer, failed_writer, split):
@@ -496,47 +540,15 @@ class SingleEndProcessor(BaseProcessor):
         return blob, b"".join(failed), int(emit.sum())
 
     def _record_adapters(self, out, bases: np.ndarray):
-        """Adapter recording (FilterResult::addAdapterTrimmed) in row order,
-        grouped by slice content (see group_slices)."""
-        aseq = self.cfg.adapter_seq1
+        """Adapter recording in row order (see record_adapter_hits)."""
         frows = np.flatnonzero(out["ad_found"])
-        ps = out["ad_pos"][frows].astype(np.int64)
         tfs = out["total_front"][frows].astype(np.int64)
-        entries = []  # explicit strings: (idx, str, count)
-        neg = ps < 0
-        negrows = np.flatnonzero(neg)
-        if negrows.size:  # adapter clipped at the read start
-            uniq, first, counts = np.unique(ps[negrows], return_index=True,
-                                            return_counts=True)
-            for k in range(uniq.size):
-                entries.append((int(negrows[first[k]]),
-                                aseq[:len(aseq) + int(uniq[k])].decode(),
-                                int(counts[k])))
-        nrm = np.flatnonzero(~neg)
-        lo = tfs + out["rlen_post_adapter"][frows].astype(np.int64)
-        hi = tfs + out["rlen_pre_adapter"][frows].astype(np.int64)
-        fr = self.filter_result
-        if fr._adrec is not None:
-            # normal rows stream to the native recorder in row order,
-            # interleaved with the synthesized prefixes
-            entries.sort(key=lambda t: t[0])
-            start = 0
-            for idx, s, c in entries + [(frows.size + 1, "", 0)]:
-                seg = nrm[(nrm >= start) & (nrm < idx)]
-                if seg.size:
-                    fr.add_adapter_trimmed_rows_bulk(
-                        bases, frows[seg], lo[seg], hi[seg], False)
-                if s:
-                    fr.add_adapter_trimmed(s, False, count=c)
-                start = idx
-        else:
-            if nrm.size:
-                for p0, bb, c in group_slices(bases, frows[nrm], lo[nrm],
-                                              hi[nrm]):
-                    entries.append((int(nrm[p0]), bb.decode("latin-1"), c))
-            entries.sort(key=lambda t: t[0])
-            for _, s, c in entries:
-                fr.add_adapter_trimmed(s, False, count=c)
+        record_adapter_hits(
+            self.filter_result, bases, frows,
+            out["ad_pos"][frows].astype(np.int64),
+            tfs + out["rlen_post_adapter"][frows].astype(np.int64),
+            tfs + out["rlen_pre_adapter"][frows].astype(np.int64),
+            self.cfg.adapter_seq1, False)
 
     def _finish(self) -> Dict:
         opt = self.opt

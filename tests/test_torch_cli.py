@@ -9,7 +9,9 @@
   normal sparse path on the same corpus;
 * the entry points and options the port does not cover yet (the server,
   the self-test, several processes or devices) fail with their ROADMAP
-  item.
+  item;
+* the device rule: CUDA unless the caller asks for the CPU (`device="cpu"`
+  or FASTP_TPU_TORCH_DEVICE=cpu); no card and no request is an error.
 
 The single-end and failure-routing paths have their own files
 (tests/test_torch_se.py, tests/test_torch_failed.py), which reuse the
@@ -64,6 +66,7 @@ def run_module(module, cwd, args, stdin=None, stdout=None, **env_extra):
     `stdout` the name of a file in cwd that takes the standard output."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    env["FASTP_TPU_TORCH_DEVICE"] = "cpu"  # the port's request for the CPU
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     # one OpenMP thread per run: the suite runs files in parallel workers,
     # and a torch pool per process sized to every core oversubscribes the
@@ -149,7 +152,7 @@ def test_correction_overflow_path_is_exact(synth, tmp_path, monkeypatch):
 
     monkeypatch.setattr(t_correct, "extract_deltas_sparse", four_slots)
     monkeypatch.chdir(tmp_path)
-    cli.run(["fastp_tpu_torch"] + args)
+    cli.run(["fastp_tpu_torch"] + args, device="cpu")
     assert max(counts) > 4
     assert_same_outputs(d / "port", tmp_path)
 
@@ -163,5 +166,70 @@ def test_correction_overflow_path_is_exact(synth, tmp_path, monkeypatch):
 def test_options_outside_the_slice(argv, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
-        cli.run(["fastp_tpu_torch"] + argv)
+        cli.run(["fastp_tpu_torch"] + argv, device="cpu")
+
+
+def _module_run(cwd, args, **env_extra):
+    """`python -m fastp_tpu_torch args` with the device request taken out of
+    the environment unless env_extra puts one in; returns the finished
+    process, whatever its exit code."""
+    env = dict(os.environ)
+    env.pop("FASTP_TPU_TORCH_DEVICE", None)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    env.update(env_extra)
+    return subprocess.run([sys.executable, "-m", "fastp_tpu_torch"] + args,
+                          cwd=str(cwd), env=env, capture_output=True,
+                          text=True, timeout=900)
+
+
+CFG3 = ["-i", R1, "-I", R2, "-o", "out1.fq", "-O", "out2.fq", "--correction",
+        "--cut_right"]
+
+
+def test_no_card_and_no_request_fails_at_once(tmp_path):
+    """Without a card the port does not carry on on the CPU unasked: it
+    exits non-zero, names the variable that asks for the CPU, and has
+    written nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the unasked run would use it")
+    res = _module_run(tmp_path, CFG3)
+    assert res.returncode != 0
+    assert "FASTP_TPU_TORCH_DEVICE" in res.stderr
+    assert "running on" not in res.stderr
+    assert os.listdir(tmp_path) == []
+
+
+def test_device_variable_asks_for_the_cpu(tmp_path):
+    res = _module_run(tmp_path, CFG3, FASTP_TPU_TORCH_DEVICE="cpu")
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "running on cpu" in res.stderr
+    assert_same_outputs(tmp_path, os.path.join(GOLDENS, "cfg3_pe_correction"))
+
+
+@pytest.mark.parametrize("given,env,want", [
+    ("cpu", None, "cpu"), (None, "cpu", "cpu"), ("cpu", "cuda", "cpu"),
+    (torch.device("cpu"), None, "cpu")])
+def test_resolve_device_takes_the_callers_word(given, env, want, monkeypatch):
+    monkeypatch.delenv("FASTP_TPU_TORCH_DEVICE", raising=False)
+    if env is not None:
+        monkeypatch.setenv("FASTP_TPU_TORCH_DEVICE", env)
+    assert cli.resolve_device(given) == torch.device(want)
+
+
+@pytest.mark.parametrize("given,env", [
+    (None, None), (None, ""), ("cuda", "cpu"), (None, "cuda:0")])
+def test_resolve_device_never_falls_back(given, env, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    monkeypatch.delenv("FASTP_TPU_TORCH_DEVICE", raising=False)
+    if env is not None:
+        monkeypatch.setenv("FASTP_TPU_TORCH_DEVICE", env)
+    with pytest.raises(RuntimeError, match="FASTP_TPU_TORCH_DEVICE"):
+        cli.resolve_device(given)
+
+
+def test_resolve_device_refuses_other_devices():
+    with pytest.raises(ValueError, match="cpu, cuda"):
+        cli.resolve_device("meta")
 

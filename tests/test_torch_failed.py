@@ -5,7 +5,7 @@ output.
 * the cfg6, cfg7 and cfg8 goldens: every FASTQ file each golden holds
   byte for byte, fastp.json after the command-line normalisation; cfg6
   and cfg8 also with FASTP_TPU_NO_NATIVE=1, where the per-row routing
-  loop replaces fastp_tpu's native route_pe;
+  loop replaces the native route_pe;
 * differential runs against `python -m fastp_tpu` on the 2,000-pair
   tools/make_synth.py corpus: cfg8's flags (with and without the native
   library in the port's environment) and split output over two workers;
@@ -86,6 +86,6 @@ def test_correction_overflow_non_lean(corpus, tmp_path, monkeypatch):
 
     monkeypatch.setattr(t_correct, "extract_deltas_sparse", four_slots)
     monkeypatch.chdir(tmp_path)
-    cli.run(["fastp_tpu_torch"] + inputs + CFG8)
+    cli.run(["fastp_tpu_torch"] + inputs + CFG8, device="cpu")
     assert max(counts) > 4
     assert_same_outputs(tmp_path, runs["cfg8"])

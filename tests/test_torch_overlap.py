@@ -7,6 +7,17 @@ loop and to its Pallas kernel run in interpret mode; the gapped analysis
 planted one-base insertions among others; the float32 acceptance limit is
 checked as a table; the CUDA kernel itself is checked against the plain
 version on the card (skipped without one).
+
+The kernel cannot run without a card, so its arithmetic is modelled here in
+numpy, step for step (`kernel_model`: the padded rows as 32-bit words, the
+unaligned fetch from two aligned words, the carry-trick byte count, the
+mask of the last word, the 50-position prefix that ends two bytes into
+word 12, the round that ends once every lane's count has passed diff_limit,
+32 offsets a round with the lowest set bit of the ballot winning, forward
+rounds before backward, the full count split over the lanes), and
+the model is held exactly to the plain version and to fastp_tpu's loop on
+chip_smoke.py's adversarial rows.  A read outside a staged row raises in
+the model, where the kernel would read another row's bytes.
 """
 import numpy as np
 import pytest
@@ -18,6 +29,7 @@ from fastp_tpu.ops.overlap_pallas import analyze_pallas
 from fastp_tpu_torch.ops import overlap as t_overlap
 from fastp_tpu_torch.ops import overlap_cuda
 from fastp_tpu_torch.ops.common import rc
+from chip_smoke import _adversarial_rows, needed_compares
 from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KEYS = ("overlapped", "offset", "overlap_len", "diff")
@@ -189,6 +201,191 @@ def test_gapped_matches_analyze_loop(rows):
             "overlapped"]).any()
 
 
+U32 = np.uint32
+LANES = np.arange(32)
+
+
+def _staged_words(row, L):
+    """One string as the kernel stages it: L bytes, zero pad, as words."""
+    buf = np.zeros(overlap_cuda.padded_row_bytes(L), np.uint8)
+    buf[:L] = row
+    return buf.view("<u4")
+
+
+def _funnelshift_r(lo, hi, sh):
+    """Low word of (hi:lo) >> sh, sh in bits (the CUDA intrinsic)."""
+    both = lo.astype(np.uint64) | (hi.astype(np.uint64) << np.uint64(32))
+    return (both >> sh.astype(np.uint64)).astype(U32)
+
+
+def _nonzero_bytes(x):
+    carry = (x & U32(0x7f7f7f7f)) + U32(0x7f7f7f7f)
+    return np.bitwise_count((carry | x) & U32(0x80808080)).astype(np.int64)
+
+
+def _first_bytes(n):
+    return ((np.uint64(1) << (8 * n).astype(np.uint64)) - np.uint64(1)).astype(U32)
+
+
+def _count_prefix(x32, y32, t, n, dl):
+    """count_prefix of the kernel for the 32 lanes of a warp: shifts t,
+    lengths 0 <= n <= 50.  Lanes with n == 0 read nothing; the warp leaves
+    the loop once no lane both has words left and a count within dl."""
+    q, sh = t >> 2, 8 * (t & 3)
+    mm = np.zeros(len(t), np.int64)
+    lo = np.zeros(len(t), U32)
+    lo[n > 0] = x32[q[n > 0]]
+    for w in range(13):
+        left = n - 4 * w
+        on = left > 0
+        hi = np.zeros(len(t), U32)
+        hi[on] = x32[q[on] + w + 1]
+        d = _funnelshift_r(lo, hi, sh) ^ y32[w]
+        d = np.where(left < 4, d & _first_bytes(np.clip(left, 0, 3)), d)
+        mm[on] += _nonzero_bytes(d)[on]
+        lo = np.where(on, hi, lo)
+        if not np.any((left > 4) & (mm <= dl)):   # __any_sync
+            break
+    return mm
+
+
+def _limit(olen, dl, pct):
+    lim = (np.maximum(olen, 0).astype(np.float32) * np.float32(pct)).astype(np.int64)
+    return np.minimum(lim, dl)
+
+
+def _first_accept(x32, y32, lx, ly, dl, req, pct):
+    n_cand = lx - req
+    for base in range(0, max(n_cand, 0), 32):
+        s = base + LANES
+        olen = np.minimum(lx - s, ly)
+        n = np.where(s < n_cand, np.minimum(np.maximum(olen, 0), 50), 0)
+        accept = (s < n_cand) & (_count_prefix(x32, y32, s, n, dl)
+                                 <= _limit(olen, dl, pct))
+        votes = int(np.sum(accept.astype(np.int64) << LANES))
+        if votes:
+            win = base + (votes & -votes).bit_length() - 1   # __ffs - 1
+            return win, min(lx - win, ly)
+    return None
+
+
+def _count_total(x32, y32, t, olen):
+    q, sh = t >> 2, np.full(1, 8 * (t & 3))
+    per_lane = np.zeros(32, np.int64)
+    for w in range((olen + 3) >> 2):
+        d = _funnelshift_r(x32[q + w:q + w + 1], x32[q + w + 1:q + w + 2],
+                           sh) ^ y32[w]
+        left = olen - 4 * w
+        if left < 4:
+            d = d & _first_bytes(np.full(1, left))
+        per_lane[w % 32] += int(_nonzero_bytes(d)[0])
+    return int(per_lane.sum())
+
+
+def kernel_model(seq1, rc2, len1, len2, dl, req, pct):
+    """csrc/overlap_sweep.cu in numpy, one pair row (warp) at a time."""
+    B, L = seq1.shape
+    out = np.zeros((4, B), np.int64)
+    for r in range(B):
+        a32, b32 = _staged_words(seq1[r], L), _staged_words(rc2[r], L)
+        l1 = min(max(int(len1[r]), 0), L)
+        l2 = min(max(int(len2[r]), 0), L)
+        hit = _first_accept(a32, b32, l1, l2, dl, req, pct)
+        if hit is not None:
+            out[:, r] = 1, hit[0], hit[1], _count_total(a32, b32, *hit)
+            continue
+        hit = _first_accept(b32, a32, l2, l1, dl, req, pct)
+        if hit is not None:
+            out[:, r] = 1, -hit[0], hit[1], _count_total(b32, a32, *hit)
+    return dict(zip(KEYS, out))
+
+
+@pytest.mark.parametrize("B,L", [(192, 160), (96 + 5, 160), (3, 160),
+                                 (96, 256), (48 + 5, 256), (64, 120)])
+@pytest.mark.parametrize("setting", [(5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0)])
+def test_kernel_model_matches_plain_and_loop(B, L, setting):
+    """chip_smoke.py's adversarial rows, at the bench width, at the PE251
+    width, at a width that is no multiple of 16, and at row counts that are
+    no multiple of the rows a block takes."""
+    seq1, rc2, l1, l2 = _adversarial_rows(np.random.default_rng(B + L), B=B, L=L)
+    got = kernel_model(seq1, rc2, l1, l2, *setting)
+    plain = dict(zip(KEYS, t_overlap.sweep_select_plain(
+        *(torch.from_numpy(x) for x in (seq1, rc2, l1, l2)), *setting)))
+    _same(got, plain)
+    # fastp_tpu's loop takes read 2 and reverse-complements it itself, which
+    # keeps only ACGTN: the same rows over that alphabet (equal bytes stay
+    # equal, a byte flipped by 1 stays different), read 2 = rc(rc2)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    seq1n, rc2n = letters[seq1 % 5], letters[rc2 % 5]
+    s2 = rc(torch.from_numpy(rc2n), torch.from_numpy(l2))
+    rc2n = rc(s2, torch.from_numpy(l2)).numpy()
+    want = j_overlap._analyze_loop(seq1n, l1, s2.numpy(), l2, *setting, False)
+    _same(kernel_model(seq1n, rc2n, l1, l2, *setting), want)
+    assert B <= 16 or np.asarray(want["overlapped"]).sum() > B // 8
+    if B > 16:
+        assert (got["offset"] < 0).any() and (got["offset"] > 0).any()
+        assert 0 < got["overlapped"].sum() < B
+
+
+def test_kernel_model_reads_no_byte_past_a_length():
+    """Bytes beyond a row's length never reach a count: changing them
+    changes nothing (in the model and in the plain version alike)."""
+    rng = np.random.default_rng(5)
+    seq1, rc2, l1, l2 = _adversarial_rows(rng, B=96, L=160)
+    base = kernel_model(seq1, rc2, l1, l2, 5, 30, 0.2)
+    pos = np.arange(160)
+    seq1b, rc2b = seq1.copy(), rc2.copy()
+    seq1b[pos[None, :] >= l1[:, None]] ^= 0xff
+    rc2b[pos[None, :] >= l2[:, None]] ^= 0xff
+    _same(kernel_model(seq1b, rc2b, l1, l2, 5, 30, 0.2), base)
+
+
+@pytest.mark.parametrize("req,dl", [(0, 5), (1, 5), (200, 5), (30, 0)])
+def test_kernel_model_at_odd_settings(req, dl):
+    """overlap_require of 0 (an empty overlap is a candidate), 1 and beyond
+    L (no candidate at all), and a zero diff_limit."""
+    seq1, rc2, l1, l2 = _adversarial_rows(np.random.default_rng(6), B=48, L=120)
+    got = kernel_model(seq1, rc2, l1, l2, dl, req, 0.2)
+    plain = dict(zip(KEYS, t_overlap.sweep_select_plain(
+        *(torch.from_numpy(x) for x in (seq1, rc2, l1, l2)), dl, req, 0.2)))
+    _same(got, plain)
+
+
+@pytest.mark.parametrize("L,stride,rows", [
+    (160, 176, 8), (256, 272, 8), (100, 128, 8), (32, 48, 8),
+    (3072, 3088, 7), (24560, 24576, 1), (24576, 24592, 0), (0, 16, 0)])
+def test_shared_memory_rows(L, stride, rows):
+    assert overlap_cuda.padded_row_bytes(L) == stride
+    assert overlap_cuda.rows_per_block(L) == rows
+    # the furthest word the kernel reads: the one after the word that holds
+    # byte L - 1 + 3 (an unaligned fetch of the last full word)
+    assert L <= 0 or 4 * ((L - 1 + 3) // 4 + 1) + 4 <= stride
+
+
+@pytest.mark.parametrize("setting", [(5, 30, 0.2), (5, 30, 0.0)])
+def test_needed_compares_counts_the_walk(setting):
+    """chip_smoke.py's count of the byte compares behind the kernel's
+    bound, against a walk of the offsets one by one."""
+    seq1, rc2, l1, l2 = _adversarial_rows(np.random.default_rng(12), B=96, L=160)
+    found, offset, ol, _ = (x.numpy() for x in t_overlap.sweep_select_plain(
+        *(torch.from_numpy(x) for x in (seq1, rc2, l1, l2)), *setting))
+    req = setting[1]
+    full = prefix = 0
+    for r in range(96):
+        a, b = int(l1[r]), int(l2[r])
+        walk = [(t, min(a - t, b)) for t in range(max(a - req, 0))] \
+            + [(-k, min(a, b - k)) for k in range(max(b - req, 0))]
+        if found[r]:   # offset 0 is shift 0 of whichever direction comes first
+            walk = walk[:[o for o, _ in walk].index(int(offset[r])) + 1]
+            assert walk[-1][1] == ol[r]
+            prefix += int(ol[r])
+        walk = [o for _, o in walk]
+        full += sum(max(o, 0) for o in walk)
+        prefix += sum(min(max(o, 0), 50) for o in walk)
+    assert needed_compares(found, offset, ol, l1, l2, req) == (full, prefix)
+    assert 0 < prefix < full
+
+
 def test_wrapper_uses_plain_version_on_cpu():
     s1, l1, s2, l2 = _corpus(6, B=32)
     before = overlap_cuda.sweep_select.launches
@@ -200,7 +397,8 @@ def test_wrapper_uses_plain_version_on_cpu():
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the overlap kernel runs only on the card")
-    for s1, l1, s2, l2 in (_corpus(7, B=512, L=160), _dirty(8, B=512)):
+    for s1, l1, s2, l2 in (_corpus(7, B=512, L=160), _dirty(8, B=512),
+                           _corpus(9, B=37, L=256), _corpus(10, B=3, L=100)):
         s1, l1, s2, l2 = (torch.from_numpy(x).cuda() for x in (s1, l1, s2, l2))
         rc2 = rc(s2, l2).contiguous()
         for setting in ((5, 30, 0.2), (2, 20, 0.1), (5, 30, 0.0)):
