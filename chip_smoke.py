@@ -38,6 +38,34 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  The CPU runs ask for the CPU with FASTP_TPU_TORCH_DEVICE=cpu;
                  one more run, with the card hidden and no such request, must
                  exit non-zero
+ 10. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
+                 jobs through the thin client (FASTP_TPU_SERVER): three
+                 20,000-pair jobs of the main path served and the same three
+                 as cold processes, both sets of wall times; the 1M-pair
+                 main job served, equal to phase main's files; a --merge
+                 --dedup job twice, the second equal to the first; `ping`
+                 counts the jobs; a second `serve` on the live socket exits
+                 non-zero; `shutdown` ends the server and removes the socket
+ 11. procs    -- the 1M-pair main path with --local_processes 2 and 4 on
+                 the one card, and as one process of its own: the shards'
+                 files in order equal phase main's, the merged JSON too (but
+                 for the numbers in read1/read2_adapter_counts, whose maps
+                 cap per shard, as in fastp_tpu); --merge --dedup with
+                 --local_processes 2 on 20,000 pairs against one process
+                 (cfg5's flags less --overrepresentation_analysis, whose
+                 sampling goes by a read's index within its process)
+ 12. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
+                 overlap checks through the kernel at one pair row
+ 13. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
+                 paired samples and one single-end sample against direct
+                 runs of the same arguments; overall.html is written
+ 14. no_card  -- serve --warm, test, --local_processes 2 and the batch
+                 runner with the card hidden and no request for the CPU:
+                 each exits non-zero and writes nothing
+Phases 10 to 14 start the port as a user would, in processes of their own;
+each job there appends the overlap kernel's launches to the file that
+FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just before the phase and read
+just after.
 Then a JSON line of the kernel results and, last, the device line.
 
     python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu]
@@ -50,6 +78,7 @@ The script imports no JAX and nothing of fastp_tpu.
 """
 import argparse
 import contextlib
+import gzip
 import io
 import json
 import os
@@ -67,6 +96,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from fastp_tpu_torch import client  # noqa: E402
 from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
 from fastp_tpu_torch.io import native as native_mod  # noqa: E402
@@ -82,6 +112,10 @@ CFG8_FLAGS = ["--correction", "--cut_right", "--failed_out", "failed.fq",
               "-l", "100"]
 CFG5_FLAGS = ["--merge", "--merged_out", "merged.fq", "--dedup",
               "--dup_calc_accuracy", "1", "--overrepresentation_analysis"]
+# cfg5 without --overrepresentation_analysis: that analysis samples reads by
+# their index within a process, so its counts are not those of one process
+# once the input is sharded (in fastp_tpu too); everything else is exact
+MERGE_DEDUP_FLAGS = CFG5_FLAGS[:-1]
 GAP_FLAGS = ["--allow_gap_overlap_trimming", "--correction", "--cut_right"]
 # tools/make_synth.py's read-through adapters, as one FASTA
 FASTA = (">r1\nAGATCGGAAGAGCACACGTCTGAACTCCAGTCA\n"
@@ -114,7 +148,8 @@ MAIN_PAIRS = 1_000_000
 CPU_PAIRS = 20_000
 # further shapes the kernel is held to the plain version at, on adversarial
 # rows: (B, L), the PE251 width and ragged row counts
-EDGE_SHAPES = ((B + 5, 256), (3, 256), (B + 5, L), (3, L))
+# (the last two are the self-test's: one pair row of 89 and of 56 bases)
+EDGE_SHAPES = ((B + 5, 256), (3, 256), (B + 5, L), (3, L), (1, 89), (1, 56))
 # the card's peaks the bound is reckoned from: HBM3 of the H100 SXM, and byte
 # compares on the integer pipes (132 SMs x 64 INT32 lanes x 4 bytes a 32-bit
 # operation x 1.75 GHz)
@@ -759,6 +794,438 @@ def _run_without_card(work, args):
     return res.returncode
 
 
+LAUNCH_LOG_ENV = cli.LAUNCH_LOG_ENV
+MAIN_BATCHES = -(-MAIN_PAIRS // B)
+
+
+def _prefix(src, dst, records, skip=0):
+    """Records [skip, skip + records) of a FASTQ file as a file of its own."""
+    with open(src, "rb") as fin, open(dst, "wb") as fout:
+        for _ in range(4 * skip):
+            fin.readline()
+        fout.writelines(fin.readline() for _ in range(4 * records))
+    return dst
+
+
+def _port_job(args, cwd, module="fastp_tpu_torch", **env):
+    """One `python -m module args` in a new directory `cwd`, on the card
+    unless env says otherwise.  Returns (stdout, stderr, wall seconds);
+    fails on a non-zero exit."""
+    os.makedirs(cwd, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
+                         env=port_env(**env), capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, "%s %s exited %d:\n%s"
+          % (module, " ".join(args), res.returncode, res.stderr[-3000:]))
+    return res.stdout, res.stderr, wall
+
+
+class LaunchLog:
+    """The file FASTP_TPU_TORCH_LAUNCH_LOG names for the jobs of one phase:
+    emptied by reset(), read by jobs()."""
+
+    def __init__(self, work, name):
+        self.path = os.path.join(work, "launches_%s.jsonl" % name)
+        self.env = {LAUNCH_LOG_ENV: self.path}
+        self.reset()
+
+    def reset(self):
+        open(self.path, "w").close()
+
+    def jobs(self):
+        with open(self.path) as fh:
+            return [json.loads(line) for line in fh if line.strip()]
+
+    def launches(self):
+        return sum(job["overlap_sweep"] for job in self.jobs())
+
+
+def _same_file(path_a, path_b, what):
+    with open(path_a, "rb") as fa, open(path_b, "rb") as fb:
+        while True:
+            a, b = fa.read(1 << 24), fb.read(1 << 24)
+            check(a == b, "%s: %s differs from %s" % (what, path_a, path_b))
+            if not a:
+                return
+
+
+ADAPTER_COUNT = re.compile(r'"([A-Za-z]+)":(\d+)')
+
+
+def _without_adapter_counts(text):
+    """A report with the numbers of its read1/read2_adapter_counts taken
+    out (the sequences named there stay); returns (text, the sum of the
+    numbers taken out)."""
+    lines, taken = [], 0
+    for line in normalize_json(text).split("\n"):
+        if "_adapter_counts" in line:
+            taken += sum(int(m.group(2)) for m in ADAPTER_COUNT.finditer(line))
+            line = ADAPTER_COUNT.sub(r'"\1"', line)
+        lines.append(line)
+    return "\n".join(lines), taken
+
+
+def _same_as_shards(single_dir, shard_dir, n, names, what, capped=False):
+    """Each of `names` in single_dir equals the shards' files 0001.name ..
+    000n.name of shard_dir laid end to end; fastp.json after the
+    command-line normalisation (the shards merge into one report).  With
+    `capped`, the numbers of read1/read2_adapter_counts are left out of the
+    comparison (the sequences named there are not) and their sums are
+    returned as (single, sharded): the maps of trimmed adapters stop taking
+    new sequences once they hold 20,000, and a pair whose first adapter was
+    refused is not recorded for the second either (report/filter_model.py,
+    as the reference's threads and fastp_tpu's shards), each shard's map
+    for itself, so on a large input these counts depend on how the input
+    was cut.  adapter_trimmed_reads and adapter_trimmed_bases are exact."""
+    for name in names:
+        joined = os.path.join(shard_dir, "joined." + name)
+        with open(joined, "wb") as out:
+            for k in range(1, n + 1):
+                shard = os.path.join(shard_dir, "%04d.%s" % (k, name))
+                check(os.path.exists(shard), "%s: no %s" % (what, shard))
+                with open(shard, "rb") as fh:
+                    shutil.copyfileobj(fh, out, 1 << 24)
+        check(os.path.getsize(joined) > 0, "%s: %s is empty" % (what, name))
+        _same_file(joined, os.path.join(single_dir, name), what)
+        os.remove(joined)
+    with open(os.path.join(single_dir, "fastp.json")) as fa, \
+            open(os.path.join(shard_dir, "fastp.json")) as fb:
+        a, b = fa.read(), fb.read()
+    taken = (0, 0)
+    if capped:
+        (a, b), taken = zip(_without_adapter_counts(a),
+                            _without_adapter_counts(b))
+    check(normalize_json(a) == normalize_json(b),
+          "%s: the merged fastp.json differs" % what)
+    check(not [f for f in os.listdir(shard_dir) if f.startswith(".fastp_shard")],
+          "%s: exchange files or shard logs were left behind" % what)
+    return taken
+
+
+@contextlib.contextmanager
+def _cwd(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def phase_serve(work, r1, r2, p1, p2):
+    """The resident server on the card, its jobs through the thin client.
+    The socket is named relative to the working directories, so that its
+    length does not depend on where the checkout lies.  Returns the launches
+    of the served 1M-pair job and of all served jobs."""
+    d = os.path.join(work, "serve")
+    os.makedirs(d)
+    log = LaunchLog(work, "serve")
+    small = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    merge = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS]
+    warm = ["fastp_tpu_torch", "-i", p1, "-I", p2, "-o", "warm1.fq", "-O",
+            "warm2.fq", "-j", "warm.json", "-h", "warm.html", *BENCH_FLAGS]
+    served_env = dict(log.env, FASTP_TPU_SERVER=os.path.join("..", "s.sock"))
+    err_path = os.path.join(d, "server.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_fh:
+        srv = subprocess.Popen(
+            port_cmd("serve", "--socket", "s.sock", "--warm-run",
+                     json.dumps(warm)), cwd=d, env=port_env(),
+            stdout=subprocess.PIPE, stderr=err_fh, text=True)
+    try:
+        lines = []
+        while not lines or not lines[-1].startswith("READY"):
+            line = srv.stdout.readline()
+            if not line:
+                with open(err_path) as fh:
+                    raise SmokeFailure("the server ended before READY:\n%s"
+                                       % fh.read()[-3000:])
+            lines.append(line.strip())
+        ready = time.perf_counter() - t0
+        check(lines[0] == "WARMED rc=0", "the warm run said %s" % lines)
+        pid = int(lines[-1].split()[1])
+        check(pid == srv.pid, "READY names pid %d, the server is %d"
+              % (pid, srv.pid))
+        served, cold = [], []
+        for k in range(3):
+            _, err, wall = _port_job(small, os.path.join(d, "served%d" % k),
+                                     **served_env)
+            check("running on cuda" in err, "served job %d did not run on "
+                  "the card:\n%s" % (k, err[-2000:]))
+            served.append(wall)
+        for k in range(3):
+            _, err, wall = _port_job(small, os.path.join(d, "cold%d" % k))
+            check("running on cuda" in err, "cold job %d did not use CUDA" % k)
+            cold.append(wall)
+            same_outputs(os.path.join(d, "served%d" % k),
+                         os.path.join(d, "cold%d" % k), "served vs cold job")
+        small_launches = log.launches()
+        check(len(log.jobs()) == 3 and all(
+            job["pid"] == pid for job in log.jobs()),
+            "the served jobs did not run inside the server: %s" % log.jobs())
+        log.reset()
+        _, err, big_wall = _port_job(big, os.path.join(d, "big"), **served_env)
+        big_launches = log.launches()
+        check(big_launches >= MAIN_BATCHES, "the served 1M-pair job launched "
+              "the overlap kernel %d times for %d batches"
+              % (big_launches, MAIN_BATCHES))
+        same_outputs(os.path.join(d, "big"), os.path.join(work, "main"),
+                     "served 1M-pair job vs phase main")
+        merge_walls = []
+        for k in range(2):
+            _, _, wall = _port_job(merge, os.path.join(d, "merge%d" % k),
+                                   **served_env)
+            merge_walls.append(wall)
+        files = same_outputs(os.path.join(d, "merge1"),
+                             os.path.join(d, "merge0"), "second served merge "
+                             "job vs the first")
+        check("merged.fq" in files, "the merge job wrote %s" % files)
+        total_launches = small_launches + log.launches()
+        with _cwd(d):
+            pong = client.ping("s.sock")
+            check(pong is not None and pong.get("jobs") == 6
+                  and pong.get("pid") == pid and pong.get("rc") == 0
+                  and pong.get("version"), "ping said %s" % pong)
+            second = subprocess.run(port_cmd("serve", "--socket", "s.sock"),
+                                    env=port_env(), capture_output=True,
+                                    text=True, timeout=120)
+            check(second.returncode != 0 and "already" in second.stderr,
+                  "a second serve on the live socket exited %d:\n%s"
+                  % (second.returncode, second.stderr[-2000:]))
+            again = client.ping("s.sock")
+            check(again is not None and again.get("pid") == pid,
+                  "the first server stopped answering: %s" % again)
+            check(client.shutdown_server("s.sock"), "shutdown got no reply")
+        rc = srv.wait(timeout=60)
+        check(rc == 0, "the server exited %d" % rc)
+        check(not os.path.exists(os.path.join(d, "s.sock")),
+              "the socket was left behind")
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+        srv.stdout.close()
+    print("phase serve: READY %.3f s after start (--warm-run of %d pairs); "
+          "%d-pair main-path job, wall seconds of `python -m fastp_tpu_torch`: "
+          "served %s; cold %s; outputs equal; 1M-pair main job served in "
+          "%.3f s = %.0f pairs/s, %d overlap kernel launches, files and JSON "
+          "equal to phase main's; --merge --dedup job served twice (%s s), "
+          "equal; ping: %s; second serve exits %d; shutdown rc 0, socket "
+          "removed"
+          % (ready, CPU_PAIRS, CPU_PAIRS,
+             ", ".join("%.3f" % w for w in served),
+             ", ".join("%.3f" % w for w in cold), big_wall,
+             MAIN_PAIRS / big_wall, big_launches,
+             ", ".join("%.3f" % w for w in merge_walls), json.dumps(pong),
+             second.returncode), flush=True)
+    return {"serve_1m": big_launches, "serve_all_jobs": total_launches,
+            "walls": {"served": served, "cold": cold, "served_1m": big_wall,
+                      "ready": ready}}
+
+
+def _time_used(log):
+    """The seconds of the report's "time used" line in a job's log (for a
+    launcher: shard 0's, which waits for the others), or -1."""
+    m = re.search(r"time used: (\d+) seconds", log)
+    return int(m.group(1)) if m else -1
+
+
+def phase_procs(work, r1, r2, p1, p2):
+    """--local_processes on the one card.  Returns {name: launches}."""
+    d = os.path.join(work, "procs")
+    log = LaunchLog(work, "procs")
+    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    merge = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq",
+             *MERGE_DEDUP_FLAGS]
+    out = {}
+    walls = {}
+    others = {}
+    # N = 1 as a user starts it: a process of its own, start-up included
+    # (phase main ran in this script's process, which held the card already)
+    used = {}   # the job's own "time used" line: the wall less start-up
+    _, err, walls[1] = _port_job(big, os.path.join(d, "n1"))
+    used[1] = _time_used(err)
+    same_outputs(os.path.join(d, "n1"), os.path.join(work, "main"),
+                 "a process of its own vs phase main")
+    for n in (2, 4):
+        log.reset()
+        nd = os.path.join(d, "n%d" % n)
+        _, err, walls[n] = _port_job(big + ["--local_processes", str(n)], nd,
+                                     **log.env)
+        used[n] = _time_used(err)
+        jobs = log.jobs()
+        check(len(jobs) == n and len({job["pid"] for job in jobs}) == n,
+              "--local_processes %d logged %s" % (n, jobs))
+        out["procs_%d" % n] = log.launches()
+        check(all(job["overlap_sweep"] > 0 for job in jobs)
+              and out["procs_%d" % n] >= MAIN_BATCHES,
+              "--local_processes %d launched the overlap kernel %s times for "
+              "%d batches" % (n, [job["overlap_sweep"] for job in jobs],
+                              MAIN_BATCHES))
+        others[n] = _same_as_shards(
+            os.path.join(work, "main"), nd, n, ("out1.fq", "out2.fq"),
+            "--local_processes %d vs phase main" % n, capped=True)
+    # the same again with each child's OpenMP pool cut to its share of the
+    # host's cores (torch sizes it to every core in every child): timing only
+    cores = os.cpu_count() or 1
+    shared = {}
+    for n in (2, 4):
+        share = str(max(1, cores // n))
+        nd = os.path.join(d, "n%d_threads" % n)
+        _, _, shared[n] = _port_job(big + ["--local_processes", str(n)], nd,
+                                    OMP_NUM_THREADS=share, MKL_NUM_THREADS=share)
+        shutil.rmtree(nd)
+    log.reset()
+    _, _, single_wall = _port_job(merge, os.path.join(d, "merge_single"))
+    _, _, merge_wall = _port_job(merge + ["--local_processes", "2"],
+                                 os.path.join(d, "merge_n2"), **log.env)
+    out["procs_merge_2"] = log.launches()
+    check(out["procs_merge_2"] > 0, "the merge shards launched no kernel")
+    _same_as_shards(os.path.join(d, "merge_single"),
+                    os.path.join(d, "merge_n2"), 2,
+                    ("merged.fq", "out1.fq", "out2.fq"),
+                    "--merge --dedup --local_processes 2 vs one process")
+    print("phase procs: 1M pairs, main path, --local_processes N on one card, "
+          "wall seconds of the launcher: N=1 (one process of its own) %.3f s "
+          "= %.0f pairs/s, N=2 %.3f s = %.0f pairs/s, N=4 %.3f s = %.0f "
+          "pairs/s (of which the job's own \"time used\": %d, %d, %d s); with "
+          "OMP_NUM_THREADS = %d cores / N in the children: N=2 "
+          "%.3f s, N=4 %.3f s; overlap kernel launches %d "
+          "and %d; the shards' files in order equal phase main's, the "
+          "merged JSON too but for the numbers in read1/read2_adapter_"
+          "counts, whose maps cap per shard (their sums, one process and N "
+          "shards: %s); --merge --dedup (cfg5 flags less "
+          "--overrepresentation_analysis) on %d pairs: one process %.3f s, "
+          "--local_processes 2 %.3f s, merged.fq, out1.fq, out2.fq and JSON "
+          "equal (%d launches)"
+          % (walls[1], MAIN_PAIRS / walls[1], walls[2], MAIN_PAIRS / walls[2],
+             walls[4], MAIN_PAIRS / walls[4], used[1], used[2], used[4],
+             cores, shared[2], shared[4],
+             out["procs_2"], out["procs_4"],
+             "; ".join("N=%d %d, %d" % (n, *o) for n, o in others.items()),
+             CPU_PAIRS, single_wall, merge_wall, out["procs_merge_2"]), flush=True)
+    out["walls"] = dict(walls, threads_shared=shared, cores=cores)
+    return out
+
+
+def phase_selftest(work):
+    log = LaunchLog(work, "selftest")
+    stdout, _, wall = _port_job(["test"], os.path.join(work, "selftest"),
+                                **log.env)
+    lines = [ln for ln in stdout.splitlines() if ": " in ln]
+    passed = [ln for ln in lines if ln.endswith(": PASSED")]
+    check(len(passed) == len(lines) >= 10 and "ALL PASSED" in stdout,
+          "the self-test printed:\n%s" % stdout)
+    launches = log.launches()
+    check(launches >= 2, "the self-test launched the overlap kernel %d times "
+          "(OverlapAnalysis::analyze and BaseCorrector analyse one pair row "
+          "each)" % launches)
+    print("phase selftest: `python -m fastp_tpu_torch test` on the card in "
+          "%.3f s: %d checks PASSED, ALL PASSED; %d overlap kernel launches "
+          "at B=1" % (wall, len(passed), launches), flush=True)
+    return launches
+
+
+def _gunzip(path):
+    with gzip.open(path, "rb") as fh:
+        return fh.read()
+
+
+def phase_batch(work, r1, r2):
+    """The batch runner over two paired samples and one single-end sample of
+    CPU_PAIRS each, against direct runs of the arguments it builds."""
+    from fastp_tpu_torch import batch
+    d = os.path.join(work, "batch")
+    indir = os.path.join(d, "in")
+    os.makedirs(indir)
+    for k, name in enumerate(("a", "b")):
+        _prefix(r1, os.path.join(indir, name + "_R1.fq"), CPU_PAIRS, k * CPU_PAIRS)
+        _prefix(r2, os.path.join(indir, name + "_R2.fq"), CPU_PAIRS, k * CPU_PAIRS)
+    _prefix(r1, os.path.join(indir, "c.fq"), CPU_PAIRS, 2 * CPU_PAIRS)
+    extra = ["--correction", "--cut_right"]
+    log = LaunchLog(work, "batch")
+    stdout, _, wall = _port_job(
+        ["-i", indir, "-o", os.path.join(d, "out"), "-r",
+         os.path.join(d, "rep"), "--args=" + " ".join(extra)], d,
+        module="fastp_tpu_torch.batch", **log.env)
+    launches = log.launches()
+    jobs = batch.scan_dir(indir)
+    check(len(jobs) == 3 and sum(1 for _, second in jobs if second) == 2,
+          "scan_dir found %s" % jobs)
+    check(len(log.jobs()) == 3 and len({j["pid"] for j in log.jobs()}) == 1,
+          "the batch jobs did not run in one process: %s" % log.jobs())
+    check(launches >= 2, "the batch's paired jobs launched %d kernels" % launches)
+    check(os.path.getsize(os.path.join(d, "rep", "overall.html")) > 0,
+          "no overall.html")
+    compared = []
+    for job in jobs:
+        args = batch.build_args(job, os.path.join(d, "direct_out"),
+                                os.path.join(d, "direct_rep"), extra)
+        os.makedirs(os.path.join(d, "direct_rep"), exist_ok=True)
+        _port_job(args, d)
+        for flag in ("-o", "-O", "--json"):
+            if flag not in args:
+                continue
+            direct = args[args.index(flag) + 1]
+            ours = direct.replace("direct_", "")
+            if flag == "--json":
+                with open(ours) as fa, open(direct) as fb:
+                    same = normalize_json(fa.read()) == normalize_json(fb.read())
+            else:
+                same = _gunzip(ours) == _gunzip(direct) != b""
+            check(same, "batch: %s differs from the direct run's" % ours)
+            compared.append(os.path.basename(ours))
+    print("phase batch: `python -m fastp_tpu_torch.batch` over 3 samples of "
+          "%d (two paired, one single-end) in %.3f s in one process, %d "
+          "overlap kernel launches; equal to direct runs: %s; overall.html "
+          "written" % (CPU_PAIRS, wall, launches, ", ".join(compared)),
+          flush=True)
+    return launches
+
+
+def phase_no_card(work, p1, p2):
+    """The four entry points with the card hidden and no request for the
+    CPU, started together: each must exit non-zero, name the variable and
+    write nothing."""
+    d = os.path.join(work, "no_card_entry")
+    indir = os.path.join(work, "batch", "in")
+    runs = {
+        "serve": port_cmd("serve", "--socket", "s.sock", "--warm"),
+        "test": port_cmd("test"),
+        "local_processes": port_cmd("-i", p1, "-I", p2, "-o", "out1.fq", "-O",
+                                    "out2.fq", "--local_processes", "2"),
+        "batch": [sys.executable, "-m", "fastp_tpu_torch.batch", "-i", indir,
+                  "-o", "out", "-r", "rep"],
+    }
+    procs = {}
+    for name, cmd in runs.items():
+        os.makedirs(os.path.join(d, name))
+        procs[name] = subprocess.Popen(
+            cmd, cwd=os.path.join(d, name),
+            env=port_env(CUDA_VISIBLE_DEVICES="-1"), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    codes = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure("%s without a card did not end" % name)
+        left = os.listdir(os.path.join(d, name))
+        check(proc.returncode != 0 and DEVICE_ENV in err and not left
+              and "READY" not in out and "PASSED" not in out,
+              "%s without a card and without %s=cpu: exit %d, files %s\n%s"
+              % (name, DEVICE_ENV, proc.returncode, left, err[-2000:]))
+        codes[name] = proc.returncode
+    print("phase no_card: with the card hidden and no request for the CPU "
+          "each entry point exits non-zero, names %s and writes nothing: %s"
+          % (DEVICE_ENV, ", ".join("%s %d" % kv for kv in codes.items())),
+          flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel-only", action="store_true",
@@ -782,10 +1249,23 @@ def main(argv=None):
                         "merge": phase_merge(work, r1, r2)}
             short_runs = phase_cpu(work, r1, r2)
             launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
+            p1 = _prefix(r1, os.path.join(work, "P1.fq"), CPU_PAIRS)
+            p2 = _prefix(r2, os.path.join(work, "P2.fq"), CPU_PAIRS)
+            served = phase_serve(work, r1, r2, p1, p2)
+            shards = phase_procs(work, r1, r2, p1, p2)
+            walls = {"serve": served.pop("walls"),
+                     "procs": shards.pop("walls")}
+            launches.update(served)
+            launches.update(shards)
+            launches["selftest"] = phase_selftest(work)
+            launches["batch"] = phase_batch(work, r1, r2)
+            phase_no_card(work, p1, p2)
         shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
     main_pct, zero_pct = (setting[2] for setting in TIMED_SETTINGS)
     t, t0 = timing[main_pct], timing[zero_pct]
     bound, bound0 = bounds[main_pct], bounds[zero_pct]
+    if not args.kernel_only:
+        print(json.dumps({"wall_seconds": walls}))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",

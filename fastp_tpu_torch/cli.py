@@ -13,6 +13,7 @@ stderr.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -352,24 +353,151 @@ def _not_ported(what: str, item: int):
                               "(ROADMAP Queue 1 item %d)" % (what, item))
 
 
-def prepare_options(argv):
-    """Parse argv (argv[0] is the program) and run the evaluator pre-pass,
-    in the order of fastp_tpu/cli.py:main.  Returns the Options."""
-    if len(argv) >= 2 and argv[1] == "serve":
-        _not_ported("the resident server", 12)
-    if len(argv) >= 2 and argv[1] == "test":
-        _not_ported("the built-in self-test", 14)
+def parse_options(argv):
+    """Parse argv (argv[0] is the program); returns (args, Options)."""
     # fastp uses -h for the html report, argparse for help
     args = build_parser().parse_args(["-h2" if a == "-h" else a
                                       for a in argv[1:]])
     if args.discard_unmerged:
         sys.stderr.write("DEPRECATED: --discard_unmerged has no effect now, "
                          "see the introduction for merging.\n")
-    if args.local_processes > 1:
-        _not_ported("--local_processes", 13)
     if args.devices > 1:
         _not_ported("--devices > 1", 13)
-    opt = options_from_args(args, argv)
+    return args, options_from_args(args, argv)
+
+
+def local_process_count(args) -> int:
+    """N when this process is the launcher of `--local_processes N` (or
+    FASTP_TPU_LOCAL_PROCESSES=N); 0 for a plain run and for a shard that a
+    launcher started."""
+    n = args.local_processes or int(os.environ.get(
+        "FASTP_TPU_LOCAL_PROCESSES", "0"))
+    if n > 1 and not os.environ.get("FASTP_TPU_SHARD_COUNT"):
+        return n
+    return 0
+
+
+def _clear_exchange_files(directory: str):
+    """Remove what the shards' file exchange (parallel/multihost.py) left
+    in `directory`: after a job that died, its files would be taken for
+    those of the next job's first round."""
+    if not os.path.isdir(directory):
+        return
+    for name in os.listdir(directory):
+        if name.startswith((".fastp_shard.", ".fastp_shard_done.")):
+            try:
+                os.unlink(os.path.join(directory, name))
+            except OSError:
+                pass
+
+
+def _spawn_local_shards(argv, n: int, opt, device: torch.device) -> int:
+    """Same-host scale-out: run the job as N record-range-sharded processes
+    of the port and merge their stats into one report.
+
+    The reference scales one process with -w N worker threads
+    (reference: src/peprocessor.cpp:750-754, src/options.cpp:14).  The
+    port's batch loop spends most of a batch in host stages under one
+    interpreter lock, so N processes give N of them; on a host with one
+    card they share it.  Children use parallel/multihost.py: record-aligned
+    input shards, per-shard "0001."-prefixed outputs, exact cross-shard
+    dedup, and a single merged JSON/HTML report from shard 0 through files
+    next to the report.
+
+    Device assignment: every child runs on the launcher's device (given by
+    the caller or by FASTP_TPU_TORCH_DEVICE), so on a host with one card all
+    share `cuda:0`.  FASTP_TPU_ASSIGN_CHIPS=1 gives child k
+    `cuda:(k mod torch.cuda.device_count())` instead, and
+    FASTP_TPU_SERVERS=sock0,sock1,... routes child k to resident server
+    k mod len (one server per card).  The launcher creates no CUDA context
+    of its own."""
+    import subprocess
+    if opt.split.enabled:
+        error_exit("--split cannot be combined with --local_processes "
+                   "(outputs are already sharded per process)")
+    if opt.inputFromSTDIN or opt.in1 in ("/dev/stdin", "-"):
+        error_exit("--local_processes does not support STDIN input")
+    child_args = []
+    i = 1
+    while i < len(argv):
+        if argv[i] == "--local_processes":
+            i += 2
+            continue
+        if argv[i].startswith("--local_processes="):
+            i += 1
+            continue
+        child_args.append(argv[i])
+        i += 1
+    servers = [s for s in os.environ.get("FASTP_TPU_SERVERS", "").split(",")
+               if s]
+    assign = (device.type == "cuda"
+              and bool(os.environ.get("FASTP_TPU_ASSIGN_CHIPS")))
+    log_dir = os.path.dirname(os.path.abspath(opt.jsonFile)) or "."
+    _clear_exchange_files(log_dir)   # of an earlier job that died there
+    procs = []
+    logs = []
+    for k in range(n):
+        env = dict(os.environ)
+        env["FASTP_TPU_SHARD_INDEX"] = str(k)
+        env["FASTP_TPU_SHARD_COUNT"] = str(n)
+        env.pop("FASTP_TPU_LOCAL_PROCESSES", None)
+        env[DEVICE_ENV] = ("cuda:%d" % (k % torch.cuda.device_count())
+                           if assign else str(device))
+        if servers:
+            env["FASTP_TPU_SERVER"] = servers[k % len(servers)]
+        # shard 0 keeps the console (it prints the merged summary); other
+        # shards log to files that surface only on failure
+        if k == 0:
+            errdst = None
+        else:
+            logs.append(os.path.join(log_dir, ".fastp_shard_log.%d" % k))
+            errdst = open(logs[-1], "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "fastp_tpu_torch"] + child_args,
+            env=env, stderr=errdst))
+        if errdst is not None:
+            errdst.close()
+    # wait for all of them; when one fails, end the others, which would
+    # wait for its exchange files (parallel/multihost.py) until they time out
+    rcs = [None] * n
+    failed = []
+    while None in rcs:
+        for k, p in enumerate(procs):
+            if rcs[k] is None:
+                rcs[k] = p.poll()
+                if rcs[k] and not failed:
+                    failed.append(k)
+                    for q in procs:
+                        if q.poll() is None:
+                            q.terminate()
+        time.sleep(0.02)
+    rc = rcs[failed[0]] if failed else 0
+    for k in failed:
+        sys.stderr.write("fastp_tpu_torch: shard %d/%d exited with %d; the "
+                         "other shards were ended\n" % (k, n, rc))
+        if k > 0:
+            try:
+                with open(logs[k - 1], "rb") as f:
+                    tail = f.read()[-4000:]
+                sys.stderr.write(tail.decode("utf-8", "replace"))
+            except OSError:
+                pass
+    if rc != 0:
+        _clear_exchange_files(log_dir)   # the logs stay, for whoever looks
+    else:
+        for pth in logs:
+            try:
+                os.unlink(pth)
+            except OSError:
+                pass
+    return rc
+
+
+def prepare_options(argv, parsed=None):
+    """Parse argv (argv[0] is the program) and run the evaluator pre-pass,
+    in the order of fastp_tpu/cli.py:main.  `parsed` is parse_options'
+    result where the caller has it already.  Returns the Options."""
+    args, opt = parsed or parse_options(argv)
     # a stream cannot be read twice: no early check, pre-pass or evaluation
     evaluate = not opt.inputFromSTDIN and opt.in1 != "/dev/stdin"
     if opt.in1 and evaluate:
@@ -424,18 +552,53 @@ def prepare_options(argv):
     return opt
 
 
+LAUNCH_LOG_ENV = "FASTP_TPU_TORCH_LAUNCH_LOG"
+
+
+def _kernel_launches() -> int:
+    from .ops.overlap_cuda import sweep_select
+    return sweep_select.launches
+
+
+def _log_launches(argv, before: int):
+    """With FASTP_TPU_TORCH_LAUNCH_LOG naming a file, append one JSON line
+    with the overlap kernel's launches during this job: how a caller counts
+    the launches of a job that ran in another process (a resident server, a
+    shard of --local_processes)."""
+    path = os.environ.get(LAUNCH_LOG_ENV)
+    if path:
+        line = json.dumps({"pid": os.getpid(), "argv": list(argv[1:]),
+                           "overlap_sweep": _kernel_launches() - before})
+        with open(path, "a") as fh:
+            fh.write(line + "\n")
+
+
 def run(argv, device=None) -> dict:
     """Run one job on `device` (see resolve_device); returns the
     processor's result dict (stats, filter result, and the number of
-    batches)."""
+    batches).  As the launcher of --local_processes it starts the shards
+    instead and returns {"rc": their exit code, "local_processes": N}."""
+    from .parallel import multihost
     from .pipeline.pe_runner import PairEndProcessor
     from .pipeline.runner import SingleEndProcessor
     device = resolve_device(device)
     t1 = time.time()
-    opt = prepare_options(argv)
+    parsed = parse_options(argv)
+    n_local = local_process_count(parsed[0])
+    if n_local:
+        # before the pre-pass, which every shard runs itself, and after
+        # the device is known, so that a launcher without a card fails once
+        rc = _spawn_local_shards(argv, n_local, parsed[1], device)
+        return {"rc": rc, "local_processes": n_local}
+    opt = prepare_options(argv, parsed)
+    if multihost.active():
+        # this process's byte ranges of the input and its output names
+        multihost.shard_options(opt)
     sys.stderr.write("fastp_tpu_torch: running on %s\n" % describe_device(device))
+    launches = _kernel_launches()
     processor = PairEndProcessor if opt.isPaired() else SingleEndProcessor
     res = processor(opt, device).process()
+    _log_launches(argv, launches)
     sys.stderr.write("\nJSON report: %s\n" % opt.jsonFile)
     sys.stderr.write("HTML report: %s\n" % opt.htmlFile)
     sys.stderr.write("\n%s\n" % opt.command)
@@ -451,9 +614,19 @@ def main(argv=None, device=None) -> int:
         sys.stderr.write("fastp_tpu_torch: fastp on PyTorch/CUDA, "
                          "version %s\n" % FASTP_TPU_VER)
         build_parser().print_usage(sys.stderr)
+        sys.stderr.write(
+            "also: fastp_tpu_torch test                # built-in self tests\n"
+            "      fastp_tpu_torch serve --socket PATH # resident server "
+            "(point jobs at it with FASTP_TPU_SERVER=PATH)\n")
         return 0
+    if len(argv) == 2 and argv[1] == "test":
+        from .selftest import run_self_tests
+        device = resolve_device(device)
+        launches = _kernel_launches()
+        ok = run_self_tests(device)
+        _log_launches(argv, launches)
+        return 0 if ok else 1
     if len(argv) == 2 and argv[1] in ("-v", "--version"):
         print("fastp %s" % FASTP_TPU_VER)
         return 0
-    run(argv, device)
-    return 0
+    return int(run(argv, device).get("rc", 0))

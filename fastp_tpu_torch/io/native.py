@@ -226,16 +226,18 @@ def _bind(lib):
 
 
 def get_lib():
-    """The loaded native library, or None if unavailable."""
+    """The loaded native library, or None if unavailable.  The variable
+    FASTP_TPU_NO_NATIVE is read at every call, not once per process: in a
+    resident server it belongs to the job that sent it."""
     global _lib, _lib_tried
+    if os.environ.get("FASTP_TPU_NO_NATIVE"):
+        return None
     if _lib is not None or _lib_tried:
         return _lib
     with _lock:
         if _lib is not None or _lib_tried:
             return _lib
         _lib_tried = True
-        if os.environ.get("FASTP_TPU_NO_NATIVE"):
-            return None
         if not os.path.exists(_SRC):
             return None
         path = _lib_path()

@@ -17,6 +17,7 @@ import numpy as np
 from ..config import Options, FAILED_TYPES, PASS_FILTER
 from ..io import native as native_mod
 from ..io.fastq import ArrayBatch, OutputWriter, open_batch_reader
+from ..parallel import multihost
 from ..report.filter_model import FilterResult
 from ..report.htmlreport import HtmlReporter
 from ..report.jsonreport import JsonReporter
@@ -121,11 +122,17 @@ class PairEndProcessor(BaseProcessor):
     def process(self) -> Dict:
         opt = self.opt
         if opt.interleavedInput:
-            source = _InterleavedPairSource(open_batch_reader(opt.in1,
-                                                              opt.phred64))
+            source = _InterleavedPairSource(open_batch_reader(
+                opt.in1, opt.phred64, getattr(opt, "shardRange1", None),
+                getattr(opt, "shardRecRange", None)))
         else:
-            source = _TwoFilePairSource(open_batch_reader(opt.in1, opt.phred64),
-                                        open_batch_reader(opt.in2, opt.phred64))
+            source = _TwoFilePairSource(
+                open_batch_reader(opt.in1, opt.phred64,
+                                  getattr(opt, "shardRange1", None),
+                                  getattr(opt, "shardRecRange", None)),
+                open_batch_reader(opt.in2, opt.phred64,
+                                  getattr(opt, "shardRange2", None),
+                                  getattr(opt, "shardRecRange", None)))
         writers = {}
         split = None
         if opt.split.enabled:
@@ -150,33 +157,40 @@ class PairEndProcessor(BaseProcessor):
                      if opt.outputToSTDOUT else None)
         pairs_seen = 0
         last_reported = 0
-        while True:
-            n = opt.batchSize
-            if opt.readsToProcess > 0:
-                n = min(n, opt.readsToProcess - pairs_seen)
-                if n <= 0:
+        try:
+            while True:
+                n = opt.batchSize
+                if opt.readsToProcess > 0:
+                    n = min(n, opt.readsToProcess - pairs_seen)
+                    if n <= 0:
+                        break
+                batch1, batch2 = source.read_pair_batch(n, self.width)
+                if batch1 is None or batch2 is None:
                     break
-            batch1, batch2 = source.read_pair_batch(n, self.width)
-            if batch1 is None or batch2 is None:
-                break
-            parts, read_passed, B = self._process_batch(batch1, batch2,
-                                                        pairs_seen)
-            if split is not None:
-                split.write1(parts.get("out1", b""),
-                             read_passed if opt.split.byFileLines else B,
-                             parts.get("out2", b""))
-            else:
-                if to_stdout:
-                    writers["stdout"].write(parts.get(to_stdout, b""))
-                for key in _STREAMS:
-                    if key in writers and key != to_stdout and parts.get(key):
-                        writers[key].write(parts[key])
-            pairs_seen += B
-            self.batches += 1
-            if opt.verbose and pairs_seen >= last_reported + 1000000:
-                last_reported = pairs_seen
-                loginfo("Read1: loaded %dM reads" % (pairs_seen // 1000000))
-                loginfo("Read2: loaded %dM reads" % (pairs_seen // 1000000))
+                parts, read_passed, B = self._process_batch(batch1, batch2,
+                                                            pairs_seen)
+                if split is not None:
+                    split.write1(parts.get("out1", b""),
+                                 read_passed if opt.split.byFileLines else B,
+                                 parts.get("out2", b""))
+                else:
+                    if to_stdout:
+                        writers["stdout"].write(parts.get(to_stdout, b""))
+                    for key in _STREAMS:
+                        if (key in writers and key != to_stdout
+                                and parts.get(key)):
+                            writers[key].write(parts[key])
+                pairs_seen += B
+                self.batches += 1
+                if opt.verbose and pairs_seen >= last_reported + 1000000:
+                    last_reported = pairs_seen
+                    for read in ("Read1", "Read2"):
+                        loginfo("%s: loaded %dM reads"
+                                % (read, pairs_seen // 1000000))
+        except BaseException:
+            self._abandon([source, *writers.values()]
+                          + ([split] if split is not None else []))
+            raise
         if opt.verbose:
             loginfo("batch loop done (%d pairs)" % pairs_seen)
         source.close()
@@ -573,6 +587,15 @@ class PairEndProcessor(BaseProcessor):
         for c in (self.overrep_pre1, self.overrep_pre2,
                   self.overrep_post1, self.overrep_post2):
             c.flush()
+        if multihost.active():
+            # gather every shard's accumulators; only shard 0 reports
+            if not multihost.merge_processor_stats(self, is_pe=True):
+                if self.duplicate is not None:
+                    self.duplicate.release()
+                return {"pre1": self.pre_stats1, "post1": self.post_stats1,
+                        "pre2": self.pre_stats2, "post2": self.post_stats2,
+                        "filter": self.filter_result, "dup_rate": 0.0,
+                        "insert_peak": 0, "batches": self.batches}
         sys.stderr.write("Read1 before filtering:\n")
         self._print_stats(self.pre_stats1)
         sys.stderr.write("\nRead2 before filtering:\n")

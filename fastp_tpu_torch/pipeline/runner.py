@@ -22,6 +22,7 @@ from ..config import (Options, PASS_FILTER, FAILED_TYPES, FAIL_QUALITY,
 from ..duplicate import Duplicate
 from ..io import native as native_mod
 from ..io.fastq import OutputWriter, open_batch_reader
+from ..parallel import multihost
 from ..report.filter_model import FilterResult
 from ..report.htmlreport import HtmlReporter
 from ..report.jsonreport import JsonReporter
@@ -264,8 +265,26 @@ class BaseProcessor:
         self.cfg = device_cfg_from_options(opt)
         self.device = device
         self.umi = UmiProcessor(opt)
-        self.duplicate = Duplicate(opt) if opt.duplicate.enabled else None
+        self.duplicate = None
+        if opt.duplicate.enabled:
+            # a shard of a sharded job replays verdicts resolved across all
+            # shards (first occurrence by global record index)
+            pre = (multihost.exact_dedup_verdicts(opt)
+                   if multihost.active() else None)
+            self.duplicate = Duplicate(opt, precomputed=pre)
         self.width = _round_width(max(opt.seqLen1, opt.seqLen2, 32))
+
+    def _abandon(self, open_things):
+        """A run that dies between batches: end the writers' threads and
+        give the Bloom buffers back, so that a resident server keeps
+        neither after a failed job."""
+        for thing in open_things:
+            try:
+                thing.close()
+            except Exception:
+                pass
+        if self.duplicate is not None:
+            self.duplicate.release()
 
     def _pad_batch(self, arrays, B, target=None):
         """Pad batch-major arrays to a fixed row count and return them with
@@ -396,7 +415,9 @@ class SingleEndProcessor(BaseProcessor):
 
     def process(self) -> Dict:
         opt = self.opt
-        reader = open_batch_reader(opt.in1, opt.phred64)
+        reader = open_batch_reader(opt.in1, opt.phred64,
+                                   getattr(opt, "shardRange1", None),
+                                   getattr(opt, "shardRecRange", None))
         out_writer = failed_writer = split = None
         if opt.split.enabled:
             split = SplitWriterSet(opt)
@@ -410,28 +431,34 @@ class SingleEndProcessor(BaseProcessor):
                                              buffer_size=opt.writerBufferSize)
         reads_seen = 0
         last_reported = 0
-        while True:
-            n = opt.batchSize
-            if opt.readsToProcess > 0:
-                n = min(n, opt.readsToProcess - reads_seen)
-                if n <= 0:
+        try:
+            while True:
+                n = opt.batchSize
+                if opt.readsToProcess > 0:
+                    n = min(n, opt.readsToProcess - reads_seen)
+                    if n <= 0:
+                        break
+                batch = reader.read_batch(n, self.width)
+                if batch is None:
                     break
-            batch = reader.read_batch(n, self.width)
-            if batch is None:
-                break
-            blob, failed, post_count = self._process_batch(batch, reads_seen)
-            if split is not None:
-                split.write1(blob, post_count if opt.split.byFileLines
-                             else batch.n)
-            elif out_writer is not None:
-                out_writer.write(blob)
-            if failed_writer is not None:
-                failed_writer.write(failed)
-            reads_seen += batch.n
-            self.batches += 1
-            if opt.verbose and reads_seen >= last_reported + 1000000:
-                last_reported = reads_seen
-                loginfo("loaded %dM reads" % (reads_seen // 1000000))
+                blob, failed, post_count = self._process_batch(batch,
+                                                               reads_seen)
+                if split is not None:
+                    split.write1(blob, post_count if opt.split.byFileLines
+                                 else batch.n)
+                elif out_writer is not None:
+                    out_writer.write(blob)
+                if failed_writer is not None:
+                    failed_writer.write(failed)
+                reads_seen += batch.n
+                self.batches += 1
+                if opt.verbose and reads_seen >= last_reported + 1000000:
+                    last_reported = reads_seen
+                    loginfo("loaded %dM reads" % (reads_seen // 1000000))
+        except BaseException:
+            self._abandon([reader] + [w for w in (out_writer, failed_writer,
+                                                  split) if w is not None])
+            raise
         if opt.verbose:
             loginfo("batch loop done (%d reads)" % reads_seen)
         reader.close()
@@ -554,6 +581,14 @@ class SingleEndProcessor(BaseProcessor):
         opt = self.opt
         self.overrep_pre.flush()
         self.overrep_post.flush()
+        if multihost.active():
+            # gather every shard's accumulators; only shard 0 reports
+            if not multihost.merge_processor_stats(self, is_pe=False):
+                if self.duplicate is not None:
+                    self.duplicate.release()
+                return {"pre": self.pre_stats, "post": self.post_stats,
+                        "filter": self.filter_result, "dup_rate": 0.0,
+                        "batches": self.batches}
         sys.stderr.write("Read1 before filtering:\n")
         self._print_stats(self.pre_stats)
         sys.stderr.write("\nRead1 after filtering:\n")

@@ -7,9 +7,10 @@
   tools/make_synth.py corpus with the bench flags;
 * the correction-slot overflow path (exact host recomputation) against the
   normal sparse path on the same corpus;
-* the entry points and options the port does not cover yet (the server,
-  the self-test, several processes or devices) fail with their ROADMAP
-  item;
+* the one option the port does not cover yet (several devices) fails with
+  its ROADMAP item; the server, the self-test and --local_processes have
+  their own files (tests/test_torch_server.py, test_torch_selftest.py,
+  test_torch_local_processes.py);
 * the device rule: CUDA unless the caller asks for the CPU (`device="cpu"`
   or FASTP_TPU_TORCH_DEVICE=cpu); no card and no request is an error.
 
@@ -158,15 +159,14 @@ def test_correction_overflow_path_is_exact(synth, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-i", R1, "-I", R2, "--local_processes", "2"], "item 13"),
     (["-i", R1, "-I", R2, "--devices", "2"], "item 13"),
-    (["serve", "--socket", "s.sock"], "item 12"),
-    (["test"], "item 14"),
+    (["-i", R1, "--devices=4", "--local_processes", "2"], "item 13"),
 ])
 def test_options_outside_the_slice(argv, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         cli.run(["fastp_tpu_torch"] + argv, device="cpu")
+    assert os.listdir(tmp_path) == []
 
 
 def _module_run(cwd, args, **env_extra):

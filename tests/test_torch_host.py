@@ -330,3 +330,288 @@ def test_copy_has_the_originals_code(rel):
     ours = _code(os.path.join(ROOT, "fastp_tpu_torch", rel))
     assert ours == _code(os.path.join(ROOT, "fastp_tpu", rel))
     assert len(ours) > 10
+
+
+# -- the copies this file holds to the originals since the server, the
+# -- shards of --local_processes, the batch runner and the self-test came
+
+import contextlib  # noqa: E402
+import gzip  # noqa: E402
+import io  # noqa: E402
+import socket  # noqa: E402
+import sys  # noqa: E402
+import threading  # noqa: E402
+
+import fastp_tpu.batch as j_batch  # noqa: E402
+import fastp_tpu.parallel.multihost as j_multihost  # noqa: E402
+import fastp_tpu.selftest as j_selftest  # noqa: E402
+import fastp_tpu.server as j_server  # noqa: E402
+import fastp_tpu_torch.batch as t_batch  # noqa: E402
+import fastp_tpu_torch.parallel.multihost as t_multihost  # noqa: E402
+import fastp_tpu_torch.selftest as t_selftest  # noqa: E402
+import fastp_tpu_torch.server as t_server  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def shard_corpus(tmp_path_factory):
+    """700 synthetic pairs (a fifth duplicates) as two files, as gzip and
+    as one interleaved file."""
+    d = tmp_path_factory.mktemp("shards")
+    r1, r2 = str(d / "R1.fq"), str(d / "R2.fq")
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
+                    "--reads", "700", "--dup-rate", "0.2", "--seed", "9",
+                    "--out1", r1, "--out2", r2], check=True, capture_output=True)
+    for path in (r1, r2):
+        with open(path, "rb") as fin, gzip.open(path + ".gz", "wb") as out:
+            out.write(fin.read())
+    inter = str(d / "inter.fq")
+    with open(r1, "rb") as f1, open(r2, "rb") as f2, open(inter, "wb") as out:
+        for _ in range(700):
+            out.writelines([f1.readline() for _ in range(4)]
+                           + [f2.readline() for _ in range(4)])
+    return {"plain": ["-i", r1, "-I", r2], "se": ["-i", r1],
+            "gz": ["-i", r1 + ".gz", "-I", r2 + ".gz"],
+            "interleaved": ["-i", inter, "--interleaved_in"]}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7])
+def test_shard_ranges_are_equal(shard_corpus, n):
+    r1, r2 = shard_corpus["plain"][1], shard_corpus["plain"][3]
+    ours = t_multihost.shard_ranges(r1, r2, n)
+    assert ours == j_multihost.shard_ranges(r1, r2, n)
+    assert t_multihost.shard_ranges(r1, None, n) \
+        == j_multihost.shard_ranges(r1, None, n)
+    # the ranges tile the file, and both files are cut at the same records
+    assert ours[0][0][0] == 0 and ours[0][-1][1] == os.path.getsize(r1)
+    assert all(a[1] == b[0] for a, b in zip(ours[0], ours[0][1:]))
+    cuts = lambda path, ranges: t_multihost._newlines_before(
+        path, [lo for lo, _ in ranges])
+    assert cuts(r1, ours[0]) == cuts(r2, ours[1])
+    assert all(c % 4 == 0 for c in cuts(r1, ours[0]))
+
+
+def _sharded_options(cli, multihost, args, k, n, monkeypatch):
+    monkeypatch.setenv("FASTP_TPU_SHARD_INDEX", str(k))
+    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", str(n))
+    argv = ["prog"] + args + ["-o", "out/o1.fq", "--failed_out", "f.fq"]
+    if "-I" in args or "--interleaved_in" in args:
+        argv += ["-O", "o2.fq", "--merge", "--merged_out", "m.fq"]
+    opt = cli.options_from_args(cli.build_parser().parse_args(argv[1:]), argv)
+    assert multihost.active() and multihost.process_index() == k \
+        and multihost.process_count() == n
+    multihost.shard_options(opt)
+    return {"range1": opt.shardRange1, "range2": opt.shardRange2,
+            "records": getattr(opt, "shardRecRange", None),
+            "out1": opt.out1, "out2": opt.out2, "failed": opt.failedOut,
+            "merged": opt.merge.out}
+
+
+@pytest.mark.parametrize("kind", ["plain", "se", "gz", "interleaved"])
+def test_shard_options_are_equal(shard_corpus, kind, monkeypatch):
+    seen = []
+    for k in range(3):
+        ours = _sharded_options(t_cli, t_multihost, shard_corpus[kind], k, 3,
+                                monkeypatch)
+        assert ours == _sharded_options(j_cli, j_multihost, shard_corpus[kind],
+                                        k, 3, monkeypatch)
+        assert ours["out1"] == os.path.join("out", "%04d.o1.fq" % (k + 1))
+        assert ours["failed"] == "%04d.f.fq" % (k + 1)
+        seen.append(ours)
+    if kind == "gz":
+        assert [s["records"] for s in seen] == [(0, 233), (233, 466), (466, None)]
+    else:
+        assert all(s["records"] is None for s in seen)
+        assert seen[0]["range1"][0] == 0
+        assert all(a["range1"][1] == b["range1"][0]
+                   for a, b in zip(seen, seen[1:]))
+    if kind == "interleaved":   # cut at even records: a pair stays whole
+        path = shard_corpus[kind][1]
+        lines = t_multihost._newlines_before(path, [s["range1"][0] for s in seen])
+        assert all(c % 8 == 0 for c in lines)
+
+
+def test_shard_options_refuse_split_and_stdin(monkeypatch):
+    monkeypatch.setenv("FASTP_TPU_SHARD_INDEX", "0")
+    monkeypatch.setenv("FASTP_TPU_SHARD_COUNT", "2")
+    for args in (["-i", R1, "-s", "3", "-o", "o.fq"], ["--stdin"]):
+        for cli, multihost in ((t_cli, t_multihost), (j_cli, j_multihost)):
+            argv = ["prog"] + args
+            opt = cli.options_from_args(cli.build_parser().parse_args(argv[1:]),
+                                        argv)
+            with pytest.raises(SystemExit):
+                multihost.shard_options(opt)
+
+
+def test_not_sharded_without_the_variables(monkeypatch):
+    monkeypatch.delenv("FASTP_TPU_SHARD_INDEX", raising=False)
+    monkeypatch.delenv("FASTP_TPU_SHARD_COUNT", raising=False)
+    assert not t_multihost.active()
+    assert (t_multihost.process_index(), t_multihost.process_count()) == (0, 1)
+
+
+SHARD_CHILD = r"""
+import os, pickle, sys
+which, k, n, out = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+os.environ["FASTP_TPU_SHARD_INDEX"], os.environ["FASTP_TPU_SHARD_COUNT"] = k, n
+if which == "port":
+    import fastp_tpu_torch.cli as cli
+    import fastp_tpu_torch.parallel.multihost as multihost
+else:
+    import fastp_tpu.cli as cli
+    import fastp_tpu.parallel.multihost as multihost
+argv = ["prog"] + sys.argv[5:]
+opt = cli.options_from_args(cli.build_parser().parse_args(argv[1:]), argv)
+multihost.shard_options(opt)
+verdicts = multihost.exact_dedup_verdicts(opt)
+first = multihost._allgather_bytes_files(b"first of %s" % k.encode(), os.getcwd())
+second = multihost._allgather_bytes_files(pickle.dumps(verdicts), os.getcwd())
+states = multihost.allgather_state({"k": int(k), "sum": int(verdicts.sum())},
+                                   os.getcwd())
+with open(out, "wb") as fh:
+    pickle.dump((verdicts, first, [pickle.loads(s) for s in second], states), fh)
+"""
+
+
+def _run_shards(which, d, args, n=2):
+    """n processes, each a shard: the dedup verdicts and three further
+    rounds of the file exchange.  Returns each shard's pickled results."""
+    import pickle
+    d.mkdir()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_CHILD, which, str(k), str(n),
+         "result.%d" % k] + args + ["-j", str(d / "fastp.json")],
+        cwd=str(d), env=env, stderr=subprocess.PIPE, text=True)
+        for k in range(n)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    out = []
+    for k in range(n):
+        with open(d / ("result.%d" % k), "rb") as fh:
+            out.append(pickle.load(fh))
+    left = [f for f in os.listdir(d) if f.startswith(".fastp_shard")]
+    assert left == [], left
+    return out
+
+
+@pytest.mark.parametrize("kind", ["plain", "gz"])
+def test_exact_dedup_verdicts_and_file_exchange_are_equal(shard_corpus, kind,
+                                                          tmp_path):
+    args = shard_corpus[kind] + ["--dedup"]
+    ours = _run_shards("port", tmp_path / "port", args)
+    theirs = _run_shards("jax", tmp_path / "jax", args)
+    total = 0
+    for k, (mine, other) in enumerate(zip(ours, theirs)):
+        assert np.array_equal(mine[0], other[0]) and mine[0].dtype == other[0].dtype
+        assert mine[1] == other[1] == [b"first of 0", b"first of 1"]
+        assert all(np.array_equal(a, b) for a, b in zip(mine[2], other[2]))
+        # every shard holds every shard's verdicts after the exchange
+        assert np.array_equal(mine[2][k], mine[0])
+        assert mine[3] == other[3] == [
+            {"k": i, "sum": int(ours[i][0].sum())} for i in range(2)]
+        total += len(mine[0])
+    assert total == 700
+    assert 0 < sum(int(m[0].sum()) for m in ours) < 700   # some are duplicates
+
+
+def test_batch_scan_and_args_are_equal(tmp_path):
+    names = ["s1_R1.fastq.gz", "s1_R2.fastq.gz", "s2_R1.fq", "single.fastq",
+             "Undetermined_R1.fq", "x.R1.fq", "x.R2.fq", "readme.txt",
+             "s3_R2.fq"]
+    for name in names:
+        (tmp_path / name).write_text("")
+    (tmp_path / "sub_R1.fq").mkdir()
+    ours = t_batch.scan_dir(str(tmp_path))
+    assert ours == j_batch.scan_dir(str(tmp_path))
+    assert [(os.path.basename(a), b and os.path.basename(b)) for a, b in ours] == [
+        ("s1_R1.fastq.gz", "s1_R2.fastq.gz"), ("s2_R1.fq", None),
+        ("single.fastq", None), ("x.R1.fq", "x.R2.fq")]
+    assert t_batch.scan_dir(str(tmp_path / "none")) == j_batch.scan_dir(
+        str(tmp_path / "none")) == []
+    assert t_batch.scan_dir(str(tmp_path), "s1", "s2") \
+        == j_batch.scan_dir(str(tmp_path), "s1", "s2")
+    for job in ours:
+        for out_dir in (str(tmp_path / "o"), None):
+            assert t_batch.build_args(job, out_dir, "rep", ["-q", "20"]) \
+                == j_batch.build_args(job, out_dir, "rep", ["-q", "20"])
+    for name, flag in (("a_R1.fq", "R1"), ("aR1b.fq", "R1"), ("a_R1_.fq", "R1_")):
+        assert t_batch.match_flag(name, flag) == j_batch.match_flag(name, flag)
+    assert t_batch.base_name("a.fq.gz") == j_batch.base_name("a.fq.gz") == "a"
+    assert t_batch.base_name("a.txt") is None
+
+
+def test_batch_summary_html_is_equal(tmp_path):
+    """Both runners' overall.html over the goldens' reports, but for the
+    program's name in it."""
+    for which, mod in (("port", t_batch), ("jax", j_batch)):
+        d = tmp_path / which
+        d.mkdir()
+        for name in ("cfg1_se_default", "cfg3_pe_correction", "cfg5_merge"):
+            shutil.copy(os.path.join(ROOT, "tests", "golden", name, "fastp.json"),
+                        d / (name + ".json"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.generate_summary_html(str(d))
+    with open(tmp_path / "port" / "overall.html") as fa, \
+            open(tmp_path / "jax" / "overall.html") as fb:
+        ours, theirs = fa.read(), fb.read()
+    assert "cfg3_pe_correction" in ours and len(ours) > 2000
+    assert ours.replace("fastp_tpu_torch", "fastp_tpu") == theirs
+
+
+def test_server_frames_are_equal():
+    """A frame written by either server module is read by the other's
+    recv_exact and by the port's client; both stream stand-ins frame text
+    and bytes alike."""
+    import fastp_tpu_torch.client as t_client
+    payload = os.urandom(70000)
+    for send in (t_server.send_frame, j_server.send_frame):
+        a, b = socket.socketpair()
+        writer = threading.Thread(target=lambda: (
+            send(a, b"O", payload), send(a, b"R", b'{"rc": 3}'), a.close()))
+        writer.start()
+        got = b""
+        while True:
+            chunk = b.recv(1 << 16)
+            if not chunk:
+                break
+            got += chunk
+        writer.join()
+        b.close()
+        assert got == (b"O" + (70000).to_bytes(4, "little") + payload
+                       + b"R" + (9).to_bytes(4, "little") + b'{"rc": 3}')
+    for recv in (t_server.recv_exact, j_server.recv_exact, t_client._recv_exact):
+        a, b = socket.socketpair()
+        a.sendall(b"abcdef")
+        a.close()
+        assert recv(b, 4) == b"abcd" and recv(b, 2) == b"ef"
+        with pytest.raises(ConnectionError):
+            recv(b, 1)
+        b.close()
+    frames = []
+    for mod in (t_server, j_server):
+        a, b = socket.socketpair()
+        stream = mod._SockStream(a, b"E")
+        stream.write("text\n")
+        stream.buffer.write(b"\x00bytes")
+        stream.write("")
+        a.close()
+        frames.append(b.recv(100))
+        b.close()
+        null = mod._NullStream()
+        assert null.write("abc") == 3 and null.buffer is null
+    assert frames[0] == frames[1] and frames[0].startswith(b"E\x05\x00\x00\x00text\n")
+
+
+def test_self_test_prints_the_same_lines():
+    import torch
+    texts = []
+    for run in (lambda: t_selftest.run_self_tests(torch.device("cpu")),
+                j_selftest.run_self_tests):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert run() is True
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1]
+    assert texts[0].count(": PASSED\n") == 11 and texts[0].endswith("ALL PASSED\n")

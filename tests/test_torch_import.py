@@ -6,7 +6,10 @@ SE processor in pipeline/runner.py and the merge op among them), runs the
 cfg3, the merging cfg5 and the single-end cfg1 goldens through cli.main on
 the CPU, and checks the outputs and that no module of the three was loaded.
 A second, static test reads every source file of the port and
-chip_smoke.py and fails on an import line that names fastp_tpu.
+chip_smoke.py and fails on an import line that names fastp_tpu.  A third
+reads the thin client's path (`__main__.py` up to its import of `.cli`, and
+client.py): it imports the standard library only, so a served job never
+pays for torch or numpy.
 """
 import os
 import re
@@ -68,7 +71,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     assert "IMPORTED" in res.stdout
     n = int(res.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 35  # ops, pipeline, io, report, utils, cli, config, ...
+    assert n >= 41  # ops, pipeline, io, report, utils, parallel, cli, server, ...
 
 
 IMPORT_LINE = re.compile(r"^\s*(?:from\s+(\S+)\s+import\b|import\s+(.+))")
@@ -117,3 +120,19 @@ def test_no_source_of_the_port_imports_fastp_tpu():
     for path in sources:
         with open(path) as fh:
             assert not dynamic.search(fh.read()), path
+
+
+def test_the_thin_clients_path_imports_the_standard_library_only():
+    pkg = os.path.join(ROOT, "fastp_tpu_torch")
+    with open(os.path.join(pkg, "__main__.py")) as fh:
+        main_lines = fh.read().split("from .cli import main")[0].splitlines()
+    with open(os.path.join(pkg, "client.py")) as fh:
+        client_lines = fh.read().splitlines()
+    assert len(main_lines) > 10 and len(client_lines) > 40
+    names = {name for line in main_lines + client_lines
+             for name in _imported_names(line)}
+    assert {".client", ".server", "socket", "struct"} <= names
+    allowed = set(sys.stdlib_module_names) | {"__future__", ".client", ".server"}
+    assert names <= allowed, sorted(names - allowed)
+    with open(os.path.join(pkg, "__init__.py")) as fh:
+        assert not [n for line in fh for n in _imported_names(line)]
