@@ -22,7 +22,9 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  and cfg8 (--failed_out, --overlapped_out): every FASTQ
                  file of each golden and fastp.json
   5. main     -- a 1,000,000-pair PE151 corpus through cli.run with the
-                 bench flags; the kernel must launch once per batch or more
+                 bench flags; the kernel must launch once per batch or more;
+                 the run accumulates (the batch's sums stay on the card until
+                 the end of the run)
   6. se       -- R1 of that corpus as single-end input with cfg1's flags
   7. failed   -- the corpus with cfg8's flags; the kernel must launch at
                  least twice per batch and every output stream is non-empty
@@ -38,7 +40,20 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  The CPU runs ask for the CPU with FASTP_TPU_TORCH_DEVICE=cpu;
                  one more run, with the card hidden and no such request, must
                  exit non-zero
- 10. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
+ 10. devices  -- the main path at 1M pairs with --devices 2 and the device
+                 request cuda:0,cuda:0 (both shards of every batch share the
+                 one card, so equality is shown and speed is not): files and
+                 JSON equal to phase main's, two kernel launches per batch;
+                 then on 20,000 pairs the se, failed and merge paths at
+                 --devices 2, the main path at --devices 3 and the main path
+                 at --devices 2 with FASTP_TPU_CORR_K=1 (rows over K take the
+                 host's recomputation), each against phase cpu's one-device
+                 run on the card
+ 11. accum    -- the main and merge paths on 20,000 pairs with
+                 FASTP_TPU_NO_ACCUM=1 against phase cpu's (accumulating)
+                 runs on the card, and the device-to-host bytes per batch
+                 both ways
+ 12. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
                  jobs through the thin client (FASTP_TPU_SERVER): three
                  20,000-pair jobs of the main path served and the same three
                  as cold processes, both sets of wall times; the 1M-pair
@@ -46,23 +61,31 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  --dedup job twice, the second equal to the first; `ping`
                  counts the jobs; a second `serve` on the live socket exits
                  non-zero; `shutdown` ends the server and removes the socket
- 11. procs    -- the 1M-pair main path with --local_processes 2 and 4 on
+ 13. procs    -- the 1M-pair main path with --local_processes 2 and 4 on
                  the one card, and as one process of its own: the shards'
                  files in order equal phase main's, the merged JSON too (but
                  for the numbers in read1/read2_adapter_counts, whose maps
-                 cap per shard, as in fastp_tpu); --merge --dedup with
+                 cap per shard, as in fastp_tpu); --local_processes 2 again
+                 with FASTP_TPU_SERVERS naming two resident servers on the
+                 one card, equal to the plain --local_processes 2 run, each
+                 shard inside its server; --merge --dedup with
                  --local_processes 2 on 20,000 pairs against one process
                  (cfg5's flags less --overrepresentation_analysis, whose
                  sampling goes by a read's index within its process)
- 12. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
+ 14. dist     -- the 1M-pair main path as two processes that exchange over
+                 torch.distributed (gloo on 127.0.0.1, MASTER_ADDR,
+                 MASTER_PORT, RANK, WORLD_SIZE; no FASTP_TPU_FS_EXCHANGE),
+                 both on the one card: the ranks' files in order equal phase
+                 main's, the merged JSON too (less the adapter-count numbers)
+ 15. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
                  overlap checks through the kernel at one pair row
- 13. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
+ 16. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
                  paired samples and one single-end sample against direct
                  runs of the same arguments; overall.html is written
- 14. no_card  -- serve --warm, test, --local_processes 2 and the batch
+ 17. no_card  -- serve --warm, test, --local_processes 2 and the batch
                  runner with the card hidden and no request for the CPU:
                  each exits non-zero and writes nothing
-Phases 10 to 14 start the port as a user would, in processes of their own;
+Phases 12 to 17 start the port as a user would, in processes of their own;
 each job there appends the overlap kernel's launches to the file that
 FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just before the phase and read
 just after.
@@ -74,6 +97,14 @@ runs phases 1 to 3 alone; with --old-kernel it also builds an earlier
 version of the kernel's source (same C interface), checks it against the
 plain version and times the two in turns (old, new, new, old).
 
+    python3 chip_smoke.py --accum-turns ROUNDS
+
+runs phases 1 and 2 and then the 1M-pair main path four times per round in
+turns: FASTP_TPU_NO_ACCUM=1, accumulating, accumulating,
+FASTP_TPU_NO_ACCUM=1, and prints the walls and the two medians (equal
+outputs required): what the run accumulator does to a wall, read within
+one call.
+
 The script imports no JAX and nothing of fastp_tpu.
 """
 import argparse
@@ -84,6 +115,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -101,6 +133,7 @@ from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
 from fastp_tpu_torch.io import native as native_mod  # noqa: E402
 from fastp_tpu_torch.ops import overlap_cuda  # noqa: E402
+from fastp_tpu_torch.pipeline import device as step_device  # noqa: E402
 from fastp_tpu_torch.ops.overlap import (COMPLETE_COMPARE_REQUIRE,  # noqa: E402
                                          sweep_select_plain)
 
@@ -553,35 +586,43 @@ def _make_corpus(work):
     return r1, r2
 
 
-def _run_in_process(argv, cwd):
-    """cli.run on the card in this process with stderr captured; returns
-    (result, log)."""
+def _run_in_process(argv, cwd, device="cuda", **env):
+    """cli.run on the card (or on the devices `device` names) in this
+    process with stderr captured and `env` laid over the environment for
+    the run; returns (result, log)."""
     log = io.StringIO()
     old = os.getcwd()
+    saved = {k: os.environ.get(k) for k in env}
     os.chdir(cwd)
+    os.environ.update(env)
     try:
         with contextlib.redirect_stderr(log):
-            res = cli.run(argv, device="cuda")
+            res = cli.run(argv, device=device)
     finally:
         os.chdir(old)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return res, log.getvalue()
 
 
-def _drive(work, name, args):
-    """One path at full size through cli.run on the card, with the kernel
-    counts set to 0 just before and read just after.  Returns (result,
-    run directory, wall seconds, overlap kernel launches)."""
+def _drive(work, name, args, device="cuda", says="running on cuda", **env):
+    """One path through cli.run on the card, with the kernel counts set to
+    0 just before and read just after.  Returns (result, run directory,
+    wall seconds, overlap kernel launches)."""
     d = os.path.join(work, name)
     os.makedirs(d)
     overlap_cuda.sweep_select.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, log = _run_in_process(["fastp_tpu_torch", *args], d)
+    res, log = _run_in_process(["fastp_tpu_torch", *args], d, device, **env)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = overlap_cuda.sweep_select.launches
-    check("running on cuda" in log, "%s run log does not show the CUDA "
-          "device" % name)
+    check(says in log, "%s run log does not say \"%s\":\n%s"
+          % (name, says, log[:400]))
     return res, d, wall, launches
 
 
@@ -614,7 +655,7 @@ def phase_main(work, r1, r2):
           "wall = %.0f pairs/s; %d batches, %d overlap kernel launches; "
           "%d reads after filtering"
           % (reads, wall, reads / wall, batches, launches, after), flush=True)
-    return launches
+    return launches, wall
 
 
 def phase_se(work, r1):
@@ -796,6 +837,104 @@ def _run_without_card(work, args):
 
 LAUNCH_LOG_ENV = cli.LAUNCH_LOG_ENV
 MAIN_BATCHES = -(-MAIN_PAIRS // B)
+CPU_BATCHES = -(-CPU_PAIRS // B)
+
+
+def _one_card(n):
+    """The device request that puts n shards of every batch on card 0."""
+    return ",".join(["cuda:0"] * n)
+
+
+def phase_devices(work, r1, r2, main_wall):
+    """--devices N with every shard on the one card: equality with the
+    unsplit runs, and the launches of a split (one per shard and analysis).
+    Returns {name: launches}."""
+    pe = ["-i", r1, "-I", r2]
+    main = pe + ["-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    res, d, wall, launches = _drive(
+        work, "devices2", main + ["--devices", "2"], device=_one_card(2),
+        says="running on 2 shards of every batch: cuda:0")
+    check(res["batches"] == MAIN_BATCHES and launches == 2 * MAIN_BATCHES,
+          "--devices 2: %d overlap kernel launches for %d batches (want one "
+          "per shard)" % (launches, res["batches"]))
+    same_outputs(d, os.path.join(work, "main"), "--devices 2 vs phase main")
+    out = {"devices_2": launches}
+    prefix = ["--reads_to_process", str(CPU_PAIRS)]
+    short = {
+        # name: (arguments, shards, launches per batch and shard, phase
+        # cpu's one-device run on the card, environment)
+        "se": (["-i", r1, "-o", "out.fq"], 2, 0, "se", {}),
+        "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], 2, 2,
+                   "failed", {}),
+        "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS], 2, 2,
+                  "merge", {}),
+        "main_3": (main, 3, 1, "main", {}),
+        "main_corr_k_1": (main, 2, 1, "main", {"FASTP_TPU_CORR_K": "1"}),
+    }
+    walls = []
+    for name, (args, n, per_batch, one, env) in short.items():
+        _, sd, swall, n_launch = _drive(
+            work, "devices_" + name, args + prefix + ["--devices", str(n)],
+            device=_one_card(n),
+            says="running on %d shards of every batch" % n, **env)
+        check(n_launch == n * per_batch * CPU_BATCHES,
+              "--devices %d, %s: %d overlap kernel launches for %d batches"
+              % (n, name, n_launch, CPU_BATCHES))
+        files = same_outputs(sd, os.path.join(work, "cmp_gpu_" + one),
+                             "--devices %d, %s, vs one device" % (n, name))
+        out["devices_%s_%d_pairs" % (name, CPU_PAIRS)] = n_launch
+        walls.append("%s at --devices %d %.3f s, %d launches (%s)"
+                     % (name, n, swall, n_launch, ", ".join(files)))
+    print("phase devices: %d pairs, main path, --devices 2 with the device "
+          "request %s (BOTH SHARDS SHARE ONE CARD: equality is shown, speed "
+          "is not) in %.3f s wall = %.0f pairs/s, beside phase main's %.3f s "
+          "on one device; %d overlap kernel launches (2 per batch); files "
+          "and JSON equal to phase main's; %d-pair prefixes equal to the "
+          "one-device runs on the card: %s"
+          % (MAIN_PAIRS, _one_card(2), wall, MAIN_PAIRS / wall, main_wall,
+             launches, CPU_PAIRS, "; ".join(walls)), flush=True)
+    out["walls"] = {"devices_2": wall, "main": main_wall}
+    return out
+
+
+def phase_accum(work, r1, r2):
+    """FASTP_TPU_NO_ACCUM=1 against accumulating runs (the default: every
+    other phase on one device accumulates), and what each way moves from the
+    card per batch."""
+    pe = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
+          "--reads_to_process", str(CPU_PAIRS)]
+    moved = {}
+    for name, flags in (("main", BENCH_FLAGS), ("merge", MERGE_DEDUP_FLAGS)):
+        for mode, env in (("accum", {}),
+                          ("per_batch", {"FASTP_TPU_NO_ACCUM": "1"})):
+            before = dict(step_device.fetch_stats)
+            res, d, _, _ = _drive(work, "accum_%s_%s" % (name, mode),
+                                  pe + list(flags), **env)
+            fetches = step_device.fetch_stats["fetches"] - before["fetches"]
+            nbytes = step_device.fetch_stats["bytes"] - before["bytes"]
+            want = res["batches"] + (1 if mode == "accum" else 0)
+            check(fetches == want, "%s, %s: %d transfers from the card for "
+                  "%d batches" % (name, mode, fetches, res["batches"]))
+            moved[name, mode] = (nbytes, fetches, res["batches"])
+        same_outputs(d, os.path.join(work, "accum_%s_accum" % name),
+                     "%s: FASTP_TPU_NO_ACCUM=1 vs the accumulating run" % name)
+        check(moved[name, "accum"][0] < moved[name, "per_batch"][0],
+              "%s: accumulating moved %d bytes, per batch %d"
+              % (name, moved[name, "accum"][0], moved[name, "per_batch"][0]))
+    same_outputs(os.path.join(work, "accum_main_per_batch"),
+                 os.path.join(work, "cmp_gpu_main"),
+                 "main, FASTP_TPU_NO_ACCUM=1, vs phase cpu's run on the card")
+    print("phase accum: %d pairs, main path and --merge --dedup, with and "
+          "without FASTP_TPU_NO_ACCUM=1: the same files and JSON (the main "
+          "path's also phase cpu's on the card); device-to-host bytes (every "
+          "leaf as int64): %s"
+          % (CPU_PAIRS, "; ".join(
+              "%s %s: %d bytes in %d transfers for %d batches = %.0f bytes "
+              "per batch" % (name, mode, nbytes, fetches, batches,
+                             nbytes / batches)
+              for (name, mode), (nbytes, fetches, batches) in moved.items())),
+          flush=True)
+    return {"%s_%s" % k: v[0] for k, v in moved.items()}
 
 
 def _prefix(src, dst, records, skip=0):
@@ -1067,16 +1206,9 @@ def phase_procs(work, r1, r2, p1, p2):
         others[n] = _same_as_shards(
             os.path.join(work, "main"), nd, n, ("out1.fq", "out2.fq"),
             "--local_processes %d vs phase main" % n, capped=True)
-    # the same again with each child's OpenMP pool cut to its share of the
-    # host's cores (torch sizes it to every core in every child): timing only
-    cores = os.cpu_count() or 1
-    shared = {}
-    for n in (2, 4):
-        share = str(max(1, cores // n))
-        nd = os.path.join(d, "n%d_threads" % n)
-        _, _, shared[n] = _port_job(big + ["--local_processes", str(n)], nd,
-                                    OMP_NUM_THREADS=share, MKL_NUM_THREADS=share)
-        shutil.rmtree(nd)
+    # N = 2 again, each shard sent to a resident server of its own
+    # (FASTP_TPU_SERVERS), both servers on the one card
+    served_wall, out["procs_2_servers"] = _shards_in_servers(d, big, log)
     log.reset()
     _, _, single_wall = _port_job(merge, os.path.join(d, "merge_single"))
     _, _, merge_wall = _port_job(merge + ["--local_processes", "2"],
@@ -1090,9 +1222,10 @@ def phase_procs(work, r1, r2, p1, p2):
     print("phase procs: 1M pairs, main path, --local_processes N on one card, "
           "wall seconds of the launcher: N=1 (one process of its own) %.3f s "
           "= %.0f pairs/s, N=2 %.3f s = %.0f pairs/s, N=4 %.3f s = %.0f "
-          "pairs/s (of which the job's own \"time used\": %d, %d, %d s); with "
-          "OMP_NUM_THREADS = %d cores / N in the children: N=2 "
-          "%.3f s, N=4 %.3f s; overlap kernel launches %d "
+          "pairs/s (of which the job's own \"time used\": %d, %d, %d s); N=2 "
+          "with FASTP_TPU_SERVERS naming two warm servers on the one card "
+          "%.3f s = %.0f pairs/s, %d launches, every file and the JSON equal "
+          "to the plain N=2 run's; overlap kernel launches %d "
           "and %d; the shards' files in order equal phase main's, the "
           "merged JSON too but for the numbers in read1/read2_adapter_"
           "counts, whose maps cap per shard (their sums, one process and N "
@@ -1102,12 +1235,155 @@ def phase_procs(work, r1, r2, p1, p2):
           "equal (%d launches)"
           % (walls[1], MAIN_PAIRS / walls[1], walls[2], MAIN_PAIRS / walls[2],
              walls[4], MAIN_PAIRS / walls[4], used[1], used[2], used[4],
-             cores, shared[2], shared[4],
+             served_wall, MAIN_PAIRS / served_wall, out["procs_2_servers"],
              out["procs_2"], out["procs_4"],
              "; ".join("N=%d %d, %d" % (n, *o) for n, o in others.items()),
              CPU_PAIRS, single_wall, merge_wall, out["procs_merge_2"]), flush=True)
-    out["walls"] = dict(walls, threads_shared=shared, cores=cores)
+    out["walls"] = dict(walls, n2_in_servers=served_wall)
     return out
+
+
+def _shards_in_servers(d, big, log):
+    """`big --local_processes 2` with FASTP_TPU_SERVERS naming two resident
+    servers (started together, --warm), compared with the plain N=2 run in
+    d/n2.  Returns (launcher's wall seconds, overlap kernel launches)."""
+    socks = ["s0.sock", "s1.sock"]
+    servers = []
+    try:
+        for sock in socks:
+            err_fh = open(os.path.join(d, sock + ".err"), "w")
+            servers.append((subprocess.Popen(
+                port_cmd("serve", "--socket", sock, "--warm"), cwd=d,
+                env=port_env(), stdout=subprocess.PIPE, stderr=err_fh,
+                text=True), err_fh))
+        pids = []
+        for (srv, _), sock in zip(servers, socks):
+            line = srv.stdout.readline()
+            if not line.startswith("READY"):
+                with open(os.path.join(d, sock + ".err")) as fh:
+                    raise SmokeFailure("server %s said %r before READY:\n%s"
+                                       % (sock, line, fh.read()[-3000:]))
+            pids.append(int(line.split()[1]))
+        log.reset()
+        nd = os.path.join(d, "n2_servers")
+        _, err, wall = _port_job(
+            big + ["--local_processes", "2"], nd, FASTP_TPU_SERVERS=",".join(
+                os.path.join("..", sock) for sock in socks), **log.env)
+        check("running on cuda" in err, "the served shard 0 did not run on "
+              "the card:\n%s" % err[-2000:])
+        jobs = log.jobs()
+        check(sorted(job["pid"] for job in jobs) == sorted(pids),
+              "the shards did not run inside the two servers %s: %s"
+              % (pids, jobs))
+        check(all(job["overlap_sweep"] > 0 for job in jobs),
+              "a served shard launched no kernel: %s" % jobs)
+        same_outputs(nd, os.path.join(d, "n2"),
+                     "--local_processes 2 in two servers vs the plain run")
+        check(sorted(os.listdir(nd)) == sorted(os.listdir(os.path.join(d, "n2"))),
+              "the served shards left other files: %s" % os.listdir(nd))
+        with _cwd(d):
+            for sock in socks:
+                pong = client.ping(sock)
+                check(pong is not None and pong.get("jobs") == 1,
+                      "server %s: ping said %s" % (sock, pong))
+                check(client.shutdown_server(sock), "no reply to shutdown")
+        for srv, _ in servers:
+            check(srv.wait(timeout=60) == 0, "a server exited non-zero")
+        return wall, log.launches()
+    finally:
+        for srv, err_fh in servers:
+            if srv.poll() is None:
+                srv.kill()
+                srv.wait()
+            srv.stdout.close()
+            err_fh.close()
+
+
+def accum_turns(work, rounds):
+    """The 1M-pair main path per batch, accumulating, accumulating, per
+    batch, `rounds` times over: the walls of the runs, in that order."""
+    r1, r2 = _make_corpus(work)
+    args = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    walls = []
+    for k, env in enumerate(({"FASTP_TPU_NO_ACCUM": "1"}, {}, {},
+                             {"FASTP_TPU_NO_ACCUM": "1"}) * rounds):
+        before = step_device.fetch_stats["fetches"]
+        res, d, wall, launches = _drive(work, "turn%d" % k, args, **env)
+        fetches = step_device.fetch_stats["fetches"] - before
+        check(launches == res["batches"] == MAIN_BATCHES
+              and fetches == MAIN_BATCHES + (0 if env else 1),
+              "turn %d: %d batches, %d launches, %d transfers"
+              % (k, res["batches"], launches, fetches))
+        if k:
+            same_outputs(d, os.path.join(work, "turn0"), "turn %d vs turn 0" % k)
+            shutil.rmtree(d)
+        walls.append(("per batch" if env else "accumulating", wall))
+    medians = {mode: float(np.median([w for m, w in walls if m == mode]))
+               for mode in ("per batch", "accumulating")}
+    print("accum turns: %d pairs, main path, wall seconds in turns: %s; "
+          "medians: %s; outputs equal"
+          % (MAIN_PAIRS, ", ".join("%s %.3f" % w for w in walls),
+             ", ".join("%s %.3f" % kv for kv in medians.items())), flush=True)
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_dist(work, r1, r2):
+    """Two ranks of one job over torch.distributed, both on the one card.
+    Returns (overlap kernel launches, wall seconds)."""
+    d = os.path.join(work, "dist")
+    os.makedirs(d)
+    log = LaunchLog(work, "dist")
+    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        port_cmd(*big), cwd=d, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, env=port_env(
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+            WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo", **log.env))
+        for rank in range(2)]
+    try:
+        for rank, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, "rank %d exited %d:\n%s"
+                  % (rank, proc.returncode, err[-3000:]))
+            check("running on cuda" in err, "rank %d did not use CUDA" % rank)
+            check("shared-filesystem" not in err,
+                  "rank %d fell back to the file exchange" % rank)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    jobs = log.jobs()
+    check(len(jobs) == 2 and len({job["pid"] for job in jobs}) == 2
+          and all(job["overlap_sweep"] > 0 for job in jobs),
+          "the two ranks logged %s" % jobs)
+    launches = log.launches()
+    check(launches >= MAIN_BATCHES, "the ranks launched the overlap kernel %d "
+          "times for %d batches" % (launches, MAIN_BATCHES))
+    taken = _same_as_shards(os.path.join(work, "main"), d, 2,
+                            ("out1.fq", "out2.fq"),
+                            "two ranks over torch.distributed vs phase main",
+                            capped=True)
+    print("phase dist: %d pairs, main path, two ranks (gloo on 127.0.0.1, no "
+          "FASTP_TPU_FS_EXCHANGE), both on the one card, in %.3f s wall from "
+          "start to the second rank's end = %.0f pairs/s; %d overlap kernel "
+          "launches (%s); the ranks' files in order equal phase main's, the "
+          "merged JSON too but for the numbers in read1/read2_adapter_counts "
+          "(their sums, one process and two ranks: %d, %d)"
+          % (MAIN_PAIRS, wall, MAIN_PAIRS / wall, launches,
+             " + ".join(str(job["overlap_sweep"]) for job in jobs), *taken),
+          flush=True)
+    return launches, wall
 
 
 def phase_selftest(work):
@@ -1233,9 +1509,20 @@ def main(argv=None):
     parser.add_argument("--old-kernel", metavar="OLD.cu",
                         help="an earlier version of csrc/overlap_sweep.cu to "
                              "check and time beside the current one")
+    parser.add_argument("--accum-turns", type=int, default=0, metavar="ROUNDS",
+                        help="phases device and build, then the 1M-pair main "
+                             "path with and without FASTP_TPU_NO_ACCUM=1, in "
+                             "turns, four runs a round")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
+    if args.accum_turns:
+        os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
+            accum_turns(work, args.accum_turns)
+        print(card)
+        print("accum-turns run: no other phase was driven")
+        return 0
     worst, timing, bounds = phase_kernel(args.old_kernel)
     launches = {}
     if not args.kernel_only:
@@ -1243,18 +1530,25 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
             phase_golden(work)
             r1, r2 = _make_corpus(work)
-            launches = {"main": phase_main(work, r1, r2),
+            main_launches, main_wall = phase_main(work, r1, r2)
+            launches = {"main": main_launches,
                         "se": phase_se(work, r1),
                         "failed": phase_failed(work, r1, r2),
                         "merge": phase_merge(work, r1, r2)}
             short_runs = phase_cpu(work, r1, r2)
             launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
+            split = phase_devices(work, r1, r2, main_wall)
+            moved = phase_accum(work, r1, r2)
             p1 = _prefix(r1, os.path.join(work, "P1.fq"), CPU_PAIRS)
             p2 = _prefix(r2, os.path.join(work, "P2.fq"), CPU_PAIRS)
             served = phase_serve(work, r1, r2, p1, p2)
             shards = phase_procs(work, r1, r2, p1, p2)
+            launches["dist_2_ranks"], dist_wall = phase_dist(work, r1, r2)
             walls = {"serve": served.pop("walls"),
-                     "procs": shards.pop("walls")}
+                     "procs": shards.pop("walls"),
+                     "devices": split.pop("walls"), "dist_2_ranks": dist_wall,
+                     "d2h_bytes_%d_pairs" % CPU_PAIRS: moved}
+            launches.update(split)
             launches.update(served)
             launches.update(shards)
             launches["selftest"] = phase_selftest(work)

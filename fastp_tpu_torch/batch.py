@@ -271,6 +271,7 @@ def main(argv=None, device=None):
     opts = ap.parse_args(argv)
     # once, before anything is written: the card unless the caller asks
     # for the CPU, and no card and no request is an error
+    # (of a comma list, which names the devices of a split, the first)
     from .cli import resolve_device
     device = resolve_device(device)
 

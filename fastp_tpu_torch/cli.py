@@ -7,8 +7,11 @@ polyG switch; all skipped for STDIN input), the choice of the SE or PE
 processor and the report lines on stderr.  The device is CUDA; the CPU is
 taken only when the caller asks for it (`device="cpu"`, or
 FASTP_TPU_TORCH_DEVICE=cpu in the environment), and a run without a card
-and without that request fails at once.  The run names its device on
-stderr.
+and without that request fails at once.  `--devices N` splits every batch
+over N devices (parallel/mesh.py:make_mesh has the rule, and what 0 means),
+and with the four torch.distributed variables set the run is one shard of a
+job on several hosts (parallel/mesh.py:init_distributed).  The run names its
+devices on stderr.
 """
 from __future__ import annotations
 
@@ -29,14 +32,36 @@ from .evaluator import Evaluator
 DEVICE_ENV = "FASTP_TPU_TORCH_DEVICE"
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device of a run: CUDA, unless the caller asks for the CPU.
+def resolve_devices(device=None) -> list:
+    """The device request of a run as a list of torch.devices: CUDA, unless
+    the caller asks for the CPU.
 
     `device` (from Python) or, when that is None, the environment variable
-    FASTP_TPU_TORCH_DEVICE (`cpu`, `cuda` or `cuda:N`) names it; with
-    neither the device is `cuda`.  A CUDA device that torch cannot see
-    raises: the run never carries on on the CPU unasked."""
+    FASTP_TPU_TORCH_DEVICE names it: `cpu`, `cuda`, `cuda:N`, or a comma
+    list such as `cuda:0,cuda:1`, which names the devices of a split
+    outright and may repeat one (parallel/mesh.py:make_mesh).  With neither
+    the request is `cuda`.  A CUDA device that torch cannot see raises: the
+    run never carries on on the CPU unasked."""
     asked = device if device is not None else os.environ.get(DEVICE_ENV) or None
+    if isinstance(asked, str):
+        names = [s.strip() for s in asked.split(",") if s.strip()] or [None]
+    elif isinstance(asked, (list, tuple)):
+        names = list(asked)
+    else:
+        names = [asked]
+    devs = [_resolve_one(name) for name in names]
+    if len({d.type for d in devs}) > 1:
+        raise ValueError("%s: a list of devices is all cpu or all cuda"
+                         % ",".join(str(d) for d in devs))
+    return devs
+
+
+def resolve_device(device=None) -> torch.device:
+    """The (first) device of the request: see resolve_devices."""
+    return resolve_devices(device)[0]
+
+
+def _resolve_one(asked) -> torch.device:
     dev = torch.device(asked if asked is not None else "cuda")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError("%s: fastp_tpu_torch runs on cpu, cuda or cuda:N "
@@ -344,13 +369,16 @@ def options_from_args(args, argv) -> Options:
 
 def describe_device(device: torch.device) -> str:
     if device.type == "cuda":
-        return "cuda (%s)" % torch.cuda.get_device_name(device)
+        return "%s (%s)" % (device, torch.cuda.get_device_name(device))
     return device.type
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError("fastp_tpu_torch does not support %s yet "
-                              "(ROADMAP Queue 1 item %d)" % (what, item))
+def describe_devices(devices) -> str:
+    """What the run says on stderr: its device, or the shards of a split."""
+    if len(devices) == 1:
+        return describe_device(devices[0])
+    return "%d shards of every batch: %s" % (
+        len(devices), ", ".join(describe_device(d) for d in devices))
 
 
 def parse_options(argv):
@@ -361,8 +389,6 @@ def parse_options(argv):
     if args.discard_unmerged:
         sys.stderr.write("DEPRECATED: --discard_unmerged has no effect now, "
                          "see the introduction for merging.\n")
-    if args.devices > 1:
-        _not_ported("--devices > 1", 13)
     return args, options_from_args(args, argv)
 
 
@@ -391,7 +417,7 @@ def _clear_exchange_files(directory: str):
                 pass
 
 
-def _spawn_local_shards(argv, n: int, opt, device: torch.device) -> int:
+def _spawn_local_shards(argv, n: int, opt, devices) -> int:
     """Same-host scale-out: run the job as N record-range-sharded processes
     of the port and merge their stats into one report.
 
@@ -406,7 +432,10 @@ def _spawn_local_shards(argv, n: int, opt, device: torch.device) -> int:
 
     Device assignment: every child runs on the launcher's device (given by
     the caller or by FASTP_TPU_TORCH_DEVICE), so on a host with one card all
-    share `cuda:0`.  FASTP_TPU_ASSIGN_CHIPS=1 gives child k
+    share `cuda:0`.  A request of `cuda` with no index goes to the children
+    as `cuda:0`: left as it is, every child would split its batches over
+    every card of the host (make_mesh).  A comma list goes to them as it
+    is.  FASTP_TPU_ASSIGN_CHIPS=1 gives child k
     `cuda:(k mod torch.cuda.device_count())` instead, and
     FASTP_TPU_SERVERS=sock0,sock1,... routes child k to resident server
     k mod len (one server per card).  The launcher creates no CUDA context
@@ -430,8 +459,12 @@ def _spawn_local_shards(argv, n: int, opt, device: torch.device) -> int:
         i += 1
     servers = [s for s in os.environ.get("FASTP_TPU_SERVERS", "").split(",")
                if s]
+    device = devices[0]
     assign = (device.type == "cuda"
               and bool(os.environ.get("FASTP_TPU_ASSIGN_CHIPS")))
+    if len(devices) == 1 and device.type == "cuda" and device.index is None:
+        devices = [torch.device("cuda", 0)]
+    child_request = ",".join(str(d) for d in devices)
     log_dir = os.path.dirname(os.path.abspath(opt.jsonFile)) or "."
     _clear_exchange_files(log_dir)   # of an earlier job that died there
     procs = []
@@ -442,7 +475,7 @@ def _spawn_local_shards(argv, n: int, opt, device: torch.device) -> int:
         env["FASTP_TPU_SHARD_COUNT"] = str(n)
         env.pop("FASTP_TPU_LOCAL_PROCESSES", None)
         env[DEVICE_ENV] = ("cuda:%d" % (k % torch.cuda.device_count())
-                           if assign else str(device))
+                           if assign else child_request)
         if servers:
             env["FASTP_TPU_SERVER"] = servers[k % len(servers)]
         # shard 0 keeps the console (it prints the merged summary); other
@@ -574,30 +607,35 @@ def _log_launches(argv, before: int):
 
 
 def run(argv, device=None) -> dict:
-    """Run one job on `device` (see resolve_device); returns the
+    """Run one job on `device` (see resolve_devices); returns the
     processor's result dict (stats, filter result, and the number of
     batches).  As the launcher of --local_processes it starts the shards
     instead and returns {"rc": their exit code, "local_processes": N}."""
     from .parallel import multihost
+    from .parallel.mesh import init_distributed, make_mesh
     from .pipeline.pe_runner import PairEndProcessor
     from .pipeline.runner import SingleEndProcessor
-    device = resolve_device(device)
+    requested = resolve_devices(device)
     t1 = time.time()
     parsed = parse_options(argv)
     n_local = local_process_count(parsed[0])
     if n_local:
         # before the pre-pass, which every shard runs itself, and after
         # the device is known, so that a launcher without a card fails once
-        rc = _spawn_local_shards(argv, n_local, parsed[1], device)
+        rc = _spawn_local_shards(argv, n_local, parsed[1], requested)
         return {"rc": rc, "local_processes": n_local}
+    # the devices of the split, before anything is read or written
+    devices = make_mesh(parsed[1].deviceCount, requested)
     opt = prepare_options(argv, parsed)
+    init_distributed()  # a no-op unless the torch.distributed variables are set
     if multihost.active():
         # this process's byte ranges of the input and its output names
         multihost.shard_options(opt)
-    sys.stderr.write("fastp_tpu_torch: running on %s\n" % describe_device(device))
+    sys.stderr.write("fastp_tpu_torch: running on %s\n"
+                     % describe_devices(devices))
     launches = _kernel_launches()
     processor = PairEndProcessor if opt.isPaired() else SingleEndProcessor
-    res = processor(opt, device).process()
+    res = processor(opt, devices).process()
     _log_launches(argv, launches)
     sys.stderr.write("\nJSON report: %s\n" % opt.jsonFile)
     sys.stderr.write("HTML report: %s\n" % opt.htmlFile)

@@ -107,3 +107,31 @@ def extract_deltas_sparse(mask, seq_new, qual_new, C: int):
     safe = idx.clamp(max=B * L - 1)
     return (rows, pos, seq_new.reshape(-1)[safe], qual_new.reshape(-1)[safe],
             flat.sum(dtype=I32))
+
+
+def extract_deltas(mask, seq_new, qual_new, K: int):
+    """Up to K (position, base, qual) correction deltas per read, in
+    ascending position (fastp_tpu/ops/correct.py:extract_deltas).
+
+    The per-row form of the list above: nothing in it looks across rows, so
+    a batch split over several devices extracts its shards' deltas where
+    they are.  Rows with more than K set positions keep the first K, and
+    `count` tells the host to recompute those rows.  The first set position
+    is a masked minimum of the column index, never argmax.  Returns
+    (pos[B, K] int32 with L as the sentinel, base[B, K] u8, qual[B, K] u8,
+    count[B] int32); a sentinel slot holds the base and qual of column L-1.
+    """
+    B, L = mask.shape
+    jpos = pos_iota(B, L, mask.device)
+    count = mask.sum(1, dtype=I32)
+    m = mask
+    poss, bass, quls = [], [], []
+    for _ in range(K):
+        idx = torch.where(m, jpos, L).min(1).values.to(I32)
+        safe = idx.clamp(0, L - 1)[:, None].long()
+        poss.append(idx)
+        bass.append(torch.gather(seq_new, 1, safe)[:, 0])
+        quls.append(torch.gather(qual_new, 1, safe)[:, 0])
+        m = m & (jpos != idx[:, None])
+    return (torch.stack(poss, 1), torch.stack(bass, 1), torch.stack(quls, 1),
+            count)

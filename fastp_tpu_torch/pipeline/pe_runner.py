@@ -3,8 +3,9 @@
 Counterpart of fastp_tpu/pipeline/pe_runner.py, lean or not: two input
 files or one interleaved stream, merging, unpaired/failed/overlapped/split
 outputs and interleaved or merged stdout.  The batch loop is synchronous:
-read -> host pre-ops -> torch step (outputs copied to numpy) -> routing ->
-writers.  Routing is route_pe (pipeline/pe_route.py) where the native
+read -> host pre-ops -> torch step (on one device or split over several;
+per-read outputs copied to numpy, the batch's sums kept on the device until
+the end of the run) -> routing -> writers.  Routing is route_pe (pipeline/pe_route.py) where the native
 library loaded, else the per-row loop below, as in fastp_tpu.
 """
 from __future__ import annotations
@@ -104,9 +105,9 @@ class _TwoFilePairSource:
 
 
 class PairEndProcessor(BaseProcessor):
-    def __init__(self, opt: Options, device):
-        super().__init__(opt, device)
-        self.step = build_pe_step(self.cfg, device)
+    def __init__(self, opt: Options, devices):
+        super().__init__(opt, devices)
+        self.step = self._wrap_step(build_pe_step)
         self.pre_stats1 = Stats(opt, False, self.width)
         self.post_stats1 = Stats(opt, False, self.width * 2)
         self.pre_stats2 = Stats(opt, True, self.width)
@@ -118,6 +119,10 @@ class PairEndProcessor(BaseProcessor):
         self.overrep_post1 = _OverRepCounter(self.post_stats1, opt)
         self.overrep_post2 = _OverRepCounter(self.post_stats2, opt)
         self.batches = 0
+        # batches whose corrections overflowed their slots (the step's
+        # sparse list, or a row's K of a split step) and were recomputed on
+        # the host; returned with the result
+        self.corr_overflow_batches = 0
 
     def process(self) -> Dict:
         opt = self.opt
@@ -198,7 +203,40 @@ class PairEndProcessor(BaseProcessor):
             wtr.close()
         if split is not None:
             split.close()
+        # accumulate mode: the run's sums arrive now (one fetch per chain
+        # instead of one per batch); merging accumulates only on the routed
+        # path, whose post_um* dicts the host adds
+        for vals in self._fold_accs():
+            self._add_sums(vals, routed=True)
         return self._finish()
+
+    def _add_sums(self, vals, routed: bool):
+        """Add a dict of batch-reduced sums to the host's stats: a batch's
+        output dict, or in accumulate mode the run's, at its end.
+        `routed`: the native routing emits the unmerged survivors, so their
+        post stats come from the device (the per-row loop counts them
+        itself, read by read)."""
+        opt = self.opt
+        self.pre_stats1.add_batch(vals["pre1"])
+        self.pre_stats2.add_batch(vals["pre2"])
+        if opt.merge.enabled:
+            # the merged stream's stats stand in for the per-mate post stats
+            self.post_stats1.add_batch(vals["post_merged"])
+            if opt.merge.includeUnmerged and routed:
+                self.post_stats1.add_batch(vals["post_um1"])
+                self.post_stats1.add_batch(vals["post_um2"])
+        else:
+            self.post_stats1.add_batch(vals["post1"])
+            self.post_stats2.add_batch(vals["post2"])
+        self.insert_hist[:len(vals["isize_hist"])] += vals["isize_hist"]
+        self.filter_result.add_polyx_trimmed(vals["polyx_reads"],
+                                             vals["polyx_bases"])
+        if opt.correction.enabled:
+            self.filter_result.add_correction_matrix(vals["corr_matrix"])
+        if "result_hist" in vals:
+            # lean: the device histogram replaces the per-row counting
+            self.filter_result.filter_read_stats += \
+                vals["result_hist"].astype(np.int64)
 
     def _process_batch(self, batch1: ArrayBatch, batch2: ArrayBatch,
                        pairs_seen: int):
@@ -249,31 +287,28 @@ class PairEndProcessor(BaseProcessor):
         (b1p, q1p, l1p, b2p, q2p, l2p, pt1p, pt2p, idxp, dedp), valid = \
             self._pad_batch([b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2,
                              index_drop, dedup_out], B, target=opt.batchSize)
-        out = self.step(b1p, q1p, l1p, b2p, q2p, l2p,
-                        *make_aux(self.cfg, valid, pt1p, pt2p, idxp, dedp))
+        out = self._call_step(
+            self.step, (b1p, q1p, l1p, b2p, q2p, l2p) + make_aux(
+                self.cfg, valid, pt1p, pt2p, idxp, dedp))
         # lean steps drop total_front when no front trim/cut can move the
         # window start on device: it is exactly the host-known pre-trim
         out.setdefault("total_front1", pre_trim1)
         out.setdefault("total_front2", pre_trim2)
 
-        self.pre_stats1.add_batch(out["pre1"])
-        self.pre_stats2.add_batch(out["pre2"])
-        if opt.merge.enabled:
-            # the merged stream's stats stand in for the per-mate post stats
-            self.post_stats1.add_batch(out["post_merged"])
-        else:
-            self.post_stats1.add_batch(out["post1"])
-            self.post_stats2.add_batch(out["post2"])
-        self.insert_hist[:len(out["isize_hist"])] += out["isize_hist"]
-        self.filter_result.add_polyx_trimmed(out["polyx_reads"],
-                                             out["polyx_bases"])
+        routed = native_mod.get_lib() is not None
+        if not self._accum:
+            self._add_sums(out, routed)
         if opt.correction.enabled:
-            self.filter_result.add_correction_matrix(out["corr_matrix"])
+            # stays per batch, with the correction lists it belongs to
             self.filter_result.inc_corrected_reads(int(out["corrected_reads"]))
-        if "result_hist" in out:
-            # lean: the device histogram replaces the per-row counting
-            self.filter_result.filter_read_stats += \
-                out["result_hist"].astype(np.int64)
+            if "c1k_cnt" in out:
+                K = out["c1k_pos"].shape[0]
+                over = bool((out["c1k_cnt"][:B] > K).any()
+                            or (out["c2k_cnt"][:B] > K).any())
+            else:
+                C = out["c1_rows"].shape[0]
+                over = int(out["c1_count"]) > C or int(out["c2_count"]) > C
+            self.corr_overflow_batches += over
 
         view = PairWindowView(_SeqView(batch1), _SeqView(batch1, True),
                               _SeqView(batch2), _SeqView(batch2, True),
@@ -291,13 +326,10 @@ class PairEndProcessor(BaseProcessor):
             self.overrep_pre1.stat_rows(batch1.bases, zeros, batch1.lengths, rows)
             self.overrep_pre2.stat_rows(batch2.bases, zeros, batch2.lengths, rows)
 
-        if native_mod.get_lib() is not None:
+        if routed:
             parts, read_passed, merged_count = route_pe(
                 self, out, batch1, batch2, B, index_drop, pre_trim1,
                 pre_trim2, dedup_out)
-            if opt.merge.enabled and opt.merge.includeUnmerged:
-                self.post_stats1.add_batch(out["post_um1"])
-                self.post_stats1.add_batch(out["post_um2"])
         else:
             parts, read_passed, merged_count = self._route_rows(
                 out, view, batch1, batch2, B, index_drop, pre_trim1,
@@ -523,6 +555,8 @@ class PairEndProcessor(BaseProcessor):
         arrays so the native serializer emits corrected content.  Batches
         whose count exceeds the slot capacity are recomputed exactly on the
         host (reference: src/basecorrector.cpp:16-83)."""
+        if "c1k_pos" in out:  # a split step: per-row top-K deltas
+            return self._patch_corrections_rowwise(batch1, batch2, out, B)
         C = out["c1_rows"].shape[0]  # slot capacity of the step
         n1 = int(out["c1_count"])
         n2 = int(out["c2_count"])
@@ -545,17 +579,54 @@ class PairEndProcessor(BaseProcessor):
             bt.bases[rows, apos] = out[base_k][:cnt][ok]
             bt.quals[rows, apos] = out[qual_k][:cnt][ok]
 
+    def _patch_corrections_rowwise(self, batch1: ArrayBatch,
+                                   batch2: ArrayBatch, out, B: int):
+        """The split step's twin of _patch_corrections: per-row [K, B] delta
+        matrices (ops/correct.py:extract_deltas) instead of the batch-level
+        sparse lists; rows whose count exceeds K are recomputed exactly on
+        the host."""
+        K = out["c1k_pos"].shape[0]
+        cnt1 = np.asarray(out["c1k_cnt"][:B], np.int64)
+        cnt2 = np.asarray(out["c2k_cnt"][:B], np.int64)
+        if not (cnt1.any() or cnt2.any()):
+            return
+        over = (cnt1 > K) | (cnt2 > K)
+        ks = np.arange(K)
+        for bt, tf_k, pos_k, u8_k, cnt in (
+                (batch1, "total_front1", "c1k_pos", "c1k_u8", cnt1),
+                (batch2, "total_front2", "c2k_pos", "c2k_u8", cnt2)):
+            posm = np.asarray(out[pos_k][:, :B], np.int64)      # [K, B]
+            u8 = out[u8_k][:, :B]                               # [2K, B]
+            valid = (ks[:, None] < np.minimum(cnt, K)[None, :]) & ~over[None, :]
+            kk, rows = np.nonzero(valid)
+            if rows.size == 0:
+                continue
+            tf = np.asarray(out[tf_k], np.int64)
+            apos = tf[rows] + posm[kk, rows]
+            ok = apos < bt.lengths[rows]
+            rows, apos, kk = rows[ok], apos[ok], kk[ok]
+            bt.bases[rows, apos] = u8[kk, rows]
+            bt.quals[rows, apos] = u8[K + kk, rows]
+        if over.any():
+            self._host_correct_all(batch1, batch2, out, B,
+                                   rows=np.flatnonzero(over))
+
     def _host_correct_all(self, batch1: ArrayBatch, batch2: ArrayBatch,
-                          out, B: int):
+                          out, B: int, rows=None):
         """Exact host recomputation of every correctable row (sparse-list
-        overflow path).  A lean step ships only the corr_able bit, and the
-        overlap is then re-derived per row on the host from the exact
-        device window."""
+        overflow path); `rows` restricts it to the given row indices (the
+        rowwise path's per-row overflows).  A lean step ships only the
+        corr_able bit, and the overlap is then re-derived per row on the
+        host from the exact device window."""
         if "ov_ok" in out:
             do = (out["ov_ok"][:B] & ~out["ov_hasgap"][:B]
                   & (out["ov_diff"][:B] != 0))
         else:
             do = out["corr_able"][:B]
+        if rows is not None:
+            m = np.zeros(B, bool)
+            m[rows] = True
+            do = do & m
         opt = self.opt
         ovp = (opt.overlapDiffLimit, opt.overlapRequire,
                opt.overlapDiffPercentLimit / 100.0)
@@ -595,7 +666,8 @@ class PairEndProcessor(BaseProcessor):
                 return {"pre1": self.pre_stats1, "post1": self.post_stats1,
                         "pre2": self.pre_stats2, "post2": self.post_stats2,
                         "filter": self.filter_result, "dup_rate": 0.0,
-                        "insert_peak": 0, "batches": self.batches}
+                        "insert_peak": 0, "batches": self.batches,
+                        "corr_overflow_batches": self.corr_overflow_batches}
         sys.stderr.write("Read1 before filtering:\n")
         self._print_stats(self.pre_stats1)
         sys.stderr.write("\nRead2 before filtering:\n")
@@ -645,7 +717,8 @@ class PairEndProcessor(BaseProcessor):
         return {"pre1": self.pre_stats1, "post1": self.post_stats1,
                 "pre2": self.pre_stats2, "post2": self.post_stats2,
                 "filter": self.filter_result, "dup_rate": dup_rate,
-                "insert_peak": peak, "batches": self.batches}
+                "insert_peak": peak, "batches": self.batches,
+                "corr_overflow_batches": self.corr_overflow_batches}
 
     def _peak_insert_size(self) -> int:
         """reference: src/peprocessor.cpp:337-347"""

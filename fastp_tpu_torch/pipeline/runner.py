@@ -5,8 +5,10 @@ the index blacklist match, grouped adapter-slice recording (one function
 for the SE and the PE processor), the overrepresented-sequence counter, a
 BaseProcessor that keeps the host state, batch padding, the index-drop
 masks and the stat printers, the single-end processor and the split-output
-writer set.  The JAX staging, fetch pools, on-device accumulator and input
-packers are not carried over: the batch loop is synchronous.
+writer set.  The JAX staging, fetch pools and input packers are not carried
+over: the batch loop is synchronous.  BaseProcessor also holds the devices
+of a split (parallel/mesh.py) and the run accumulator: the batch's sums stay
+on the device and come to the host once, at the end of the run.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import sys
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from ..config import (Options, PASS_FILTER, FAILED_TYPES, FAIL_QUALITY,
                       FAIL_N_BASE, FAIL_LENGTH, FAIL_TOO_LONG, FAIL_COMPLEXITY)
@@ -32,7 +35,8 @@ from ..utils.log import loginfo
 from ..utils.readname import first_index, fix_mgi, last_index
 from .static_cfg import device_cfg_from_options
 
-from .device import build_se_step, make_aux
+from .device import (ACC_KEYS, build_se_step, flat_leaves, flatten_int64,
+                     make_aux, unflatten_host)
 
 
 def _round_width(n: int) -> int:
@@ -258,12 +262,30 @@ class _OverRepCounter:
 
 class BaseProcessor:
     """Host state shared by the processors: options, the static device
-    config, UMI and duplicate handlers, and the torch device."""
+    config, UMI and duplicate handlers, the torch devices of the run (one,
+    or the shards of a split: parallel/mesh.py:make_mesh) and the run
+    accumulator."""
 
-    def __init__(self, opt: Options, device):
+    def __init__(self, opt: Options, devices):
         self.opt = opt
         self.cfg = device_cfg_from_options(opt)
-        self.device = device
+        self.devices = ([torch.device(d) for d in devices]
+                        if isinstance(devices, (list, tuple))
+                        else [torch.device(devices)])
+        self.device = self.devices[0]
+        self.n_dev = len(self.devices)
+        # accumulate mode: the batch's sums (every stat_batch dict and
+        # ACC_KEYS) stay on the device and are fetched once per run.  Off on
+        # a split (there the sums are joined on the host), off with
+        # FASTP_TPU_NO_ACCUM, and with merging only on the native routed
+        # path: the per-row loop stats unmerged survivors on the host and
+        # would count the device's post_um* dicts a second time.  The state
+        # belongs to the processor: a resident server's next job starts
+        # from zero.
+        merge_ok = not opt.merge.enabled or native_mod.get_lib() is not None
+        self._accum = (self.n_dev == 1 and merge_ok
+                       and not os.environ.get("FASTP_TPU_NO_ACCUM"))
+        self._acc_state = {}
         self.umi = UmiProcessor(opt)
         self.duplicate = None
         if opt.duplicate.enabled:
@@ -274,10 +296,49 @@ class BaseProcessor:
             self.duplicate = Duplicate(opt, precomputed=pre)
         self.width = _round_width(max(opt.seqLen1, opt.seqLen2, 32))
 
+    def _wrap_step(self, build):
+        """The run's step from build_se_step or build_pe_step: on one
+        device the step itself, on several the split of it."""
+        if self.n_dev == 1:
+            return build(self.cfg, self.device)
+        from ..parallel.mesh import build_sharded_step
+        return build_sharded_step(build, self.cfg, self.devices)
+
+    def _call_step(self, step, args) -> dict:
+        """Run the step on one batch and fetch its outputs.  In accumulate
+        mode the batch's sums leave the output dict before the fetch and
+        are added, as one int64 vector, to the resident vector of the
+        batch's width (a wider batch starts a new chain: the per-cycle
+        sums change shape with it)."""
+        dev_out = step.run(*args)
+        if self._accum:
+            sums = {k: dev_out.pop(k) for k in list(dev_out)
+                    if isinstance(dev_out[k], dict) or k in ACC_KEYS}
+            delta, meta = flatten_int64(flat_leaves(sums))
+            width = args[0].shape[1]
+            ent = self._acc_state.get(width)
+            if ent is None:
+                # a chain counts in int64, whatever the leaf's own type
+                self._acc_state[width] = [
+                    delta, [(path, shape, torch.int64)
+                            for path, shape, _ in meta]]
+            else:
+                ent[0] += delta
+        return step.fetch(dev_out)
+
+    def _fold_accs(self):
+        """Fetch every accumulator chain (one transfer each: one per run
+        unless the width grew) and return the dicts of sums, which the
+        caller feeds through the same add_batch calls as a batch's.  Empty
+        when accumulate mode is off."""
+        chains = list(self._acc_state.values())
+        self._acc_state = {}
+        return [unflatten_host(flat, meta) for flat, meta in chains]
+
     def _abandon(self, open_things):
-        """A run that dies between batches: end the writers' threads and
-        give the Bloom buffers back, so that a resident server keeps
-        neither after a failed job."""
+        """A run that dies between batches: end the writers' threads, give
+        the Bloom buffers back and drop the accumulator, so that a resident
+        server keeps none of them after a failed job."""
         for thing in open_things:
             try:
                 thing.close()
@@ -285,18 +346,21 @@ class BaseProcessor:
                 pass
         if self.duplicate is not None:
             self.duplicate.release()
+        self._acc_state = {}
 
     def _pad_batch(self, arrays, B, target=None):
-        """Pad batch-major arrays to a fixed row count and return them with
-        the valid mask.  On the card every batch pads to the batch size, so
-        every launch sees one shape; on the CPU small inputs pad to a bucket
-        ladder instead, as fastp_tpu does there."""
+        """Pad batch-major arrays to a fixed row count (a multiple of the
+        number of devices) and return them with the valid mask.  On the
+        card every batch pads to the batch size, so every launch sees one
+        shape; on the CPU small inputs pad to a bucket ladder instead, as
+        fastp_tpu does there."""
         tgt = max(B, target or B)
         if self.device.type == "cpu":
             for bucket in (256, 1024, 4096):
                 if B <= bucket:
                     tgt = bucket
                     break
+        tgt = -(-tgt // self.n_dev) * self.n_dev
         pad = tgt - B
         if pad == 0:
             return arrays, np.ones(B, bool)
@@ -403,9 +467,9 @@ class BaseProcessor:
 class SingleEndProcessor(BaseProcessor):
     """reference: src/seprocessor.cpp:196-315"""
 
-    def __init__(self, opt: Options, device):
-        super().__init__(opt, device)
-        self.step = build_se_step(self.cfg, device)
+    def __init__(self, opt: Options, devices):
+        super().__init__(opt, devices)
+        self.step = self._wrap_step(build_se_step)
         self.pre_stats = Stats(opt, False, self.width)
         self.post_stats = Stats(opt, False, self.width)
         self.filter_result = FilterResult(opt, False)
@@ -465,7 +529,22 @@ class SingleEndProcessor(BaseProcessor):
         for wtr in (out_writer, failed_writer, split):
             if wtr is not None:
                 wtr.close()
+        # accumulate mode: the run's sums arrive now
+        for vals in self._fold_accs():
+            self._add_sums(vals)
         return self._finish()
+
+    def _add_sums(self, vals):
+        """Add a dict of batch-reduced sums to the host's stats: a batch's
+        output dict, or in accumulate mode the run's, at its end."""
+        self.pre_stats.add_batch(vals["pre"])
+        self.post_stats.add_batch(vals["post"])
+        self.filter_result.add_polyx_trimmed(vals["polyx_reads"],
+                                             vals["polyx_bases"])
+        if "result_hist" in vals:
+            # lean: the device histogram carries the filter-result counts
+            self.filter_result.filter_read_stats += \
+                vals["result_hist"].astype(np.int64)
 
     def _process_batch(self, batch, reads_seen: int):
         """Host pre-ops, the step, counting, adapter recording and
@@ -498,24 +577,19 @@ class SingleEndProcessor(BaseProcessor):
         (bp, qp, lp, ptp, idxp, dedp), valid = self._pad_batch(
             [bases, quals, lengths, pre_trim, index_drop, dedup_out], B,
             target=opt.batchSize)
-        out = self.step(bp, qp, lp, *make_aux(self.cfg, valid, ptp, None,
-                                              idxp, dedp))
+        out = self._call_step(self.step, (bp, qp, lp) + make_aux(
+            self.cfg, valid, ptp, None, idxp, dedp))
         # lean steps drop total_front when no front trim/cut can move the
         # window start on device: it is exactly the host pre-trim
         out.setdefault("total_front", pre_trim)
 
-        self.pre_stats.add_batch(out["pre"])
-        self.post_stats.add_batch(out["post"])
-        self.filter_result.add_polyx_trimmed(out["polyx_reads"],
-                                             out["polyx_bases"])
+        if not self._accum:
+            self._add_sums(out)
         # filter result counting (index-dropped and pad rows excluded); in
         # lean mode the device histogram carries the same counts
         if "result" in out:
             self.filter_result.add_filter_result_array(
                 out["result"][:B][~index_drop], 1)
-        else:
-            self.filter_result.filter_read_stats += \
-                out["result_hist"].astype(np.int64)
         if "ad_found" in out and out["ad_found"].any():
             self._record_adapters(out, bases)
 

@@ -7,10 +7,11 @@
   tools/make_synth.py corpus with the bench flags;
 * the correction-slot overflow path (exact host recomputation) against the
   normal sparse path on the same corpus;
-* the one option the port does not cover yet (several devices) fails with
-  its ROADMAP item; the server, the self-test and --local_processes have
-  their own files (tests/test_torch_server.py, test_torch_selftest.py,
-  test_torch_local_processes.py);
+* the options that the port once refused (several devices, alone and
+  with --local_processes) run and write their report; the split has its
+  own file (tests/test_torch_mesh.py), as have the server, the self-test
+  and --local_processes (tests/test_torch_server.py,
+  test_torch_selftest.py, test_torch_local_processes.py);
 * the device rule: CUDA unless the caller asks for the CPU (`device="cpu"`
   or FASTP_TPU_TORCH_DEVICE=cpu); no card and no request is an error.
 
@@ -158,15 +159,22 @@ def test_correction_overflow_path_is_exact(synth, tmp_path, monkeypatch):
     assert_same_outputs(d / "port", tmp_path)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["-i", R1, "-I", R2, "--devices", "2"], "item 13"),
-    (["-i", R1, "--devices=4", "--local_processes", "2"], "item 13"),
+@pytest.mark.parametrize("argv,golden", [
+    (["-i", R1, "-I", R2, "--devices", "2"], "cfg2_pe_default"),
+    (["-i", R1, "--devices=4", "--local_processes", "2"], "cfg1_se_default"),
 ])
-def test_options_outside_the_slice(argv, item, tmp_path, monkeypatch):
+def test_options_outside_the_slice(argv, golden, tmp_path, monkeypatch):
+    """No option is outside the port any more: what raised
+    NotImplementedError runs, and its report is the golden's."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.run(["fastp_tpu_torch"] + argv, device="cpu")
-    assert os.listdir(tmp_path) == []
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", ROOT + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+    res = cli.run(["fastp_tpu_torch"] + argv, device="cpu")
+    assert res.get("rc", 0) == 0
+    with open(tmp_path / "fastp.json") as got, \
+            open(os.path.join(GOLDENS, golden, "fastp.json")) as want:
+        assert normalize_json(got.read()) == normalize_json(want.read())
 
 
 def _module_run(cwd, args, **env_extra):

@@ -615,3 +615,85 @@ def test_self_test_prints_the_same_lines():
         texts.append(out.getvalue())
     assert texts[0] == texts[1]
     assert texts[0].count(": PASSED\n") == 11 and texts[0].endswith("ALL PASSED\n")
+
+
+# -- the copies that came with the split over several devices and the
+# -- exchange over torch.distributed
+
+import inspect  # noqa: E402
+
+import fastp_tpu.parallel.mesh as j_mesh  # noqa: E402
+import fastp_tpu_torch.parallel.mesh as t_mesh  # noqa: E402
+
+
+def _function_code(fn):
+    """The syntax tree of a function less its docstring."""
+    tree = ast.parse(inspect.getsource(fn))
+    fn_def = tree.body[0]
+    fn_def.body = [n for n in fn_def.body if not (
+        isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)
+        and isinstance(n.value.value, str))]
+    return ast.dump(fn_def)
+
+
+def test_pad_to_multiple_is_the_originals():
+    assert _function_code(t_mesh.pad_to_multiple) \
+        == _function_code(j_mesh.pad_to_multiple)
+    arrays = [np.arange(10, dtype=np.int32), np.ones((10, 3), np.uint8)]
+    ours, theirs = (m.pad_to_multiple(arrays, 4, 10) for m in (t_mesh, j_mesh))
+    assert ours[2] == theirs[2] == 12
+    assert np.array_equal(ours[1], theirs[1]) and ours[1].sum() == 10
+    assert all(np.array_equal(a, b) and a.shape[0] == 12
+               for a, b in zip(ours[0], theirs[0]))
+
+
+GATHER_CHILD = r"""
+import os, pickle, sys
+rank, out = int(os.environ["RANK"]), sys.argv[1]
+from fastp_tpu_torch.parallel import mesh, multihost
+assert mesh.init_distributed() and mesh.init_distributed()   # latched
+assert multihost.active()
+assert (multihost.process_index(), multihost.process_count()) == (rank, 3)
+# unequal payloads: empty-ish, small, and large with every byte value
+mine = [b"x", b"rank one's payload", bytes(range(256)) * 4000][rank]
+over_group = multihost._allgather_bytes_torch(mine)
+over_files = multihost._allgather_bytes_files(mine, os.getcwd())
+states = multihost.allgather_state({"rank": rank, "n": len(mine)}, os.getcwd())
+with open(out, "wb") as fh:
+    pickle.dump((over_group, over_files, states), fh)
+"""
+
+
+def test_gather_of_unequal_payloads_over_the_group(tmp_path):
+    """Three ranks with gloo on 127.0.0.1: the gather over the process
+    group returns every rank's bytes, in rank order and at their own
+    lengths, as the file exchange (the original's route on one host) does."""
+    import pickle
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for rank in range(3):
+        env = dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE="3",
+                   GLOO_SOCKET_IFNAME="lo",
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env.pop("FASTP_TPU_FS_EXCHANGE", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", GATHER_CHILD, "result.%d" % rank],
+            cwd=str(tmp_path), env=env, stderr=subprocess.PIPE, text=True))
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    want = [b"x", b"rank one's payload", bytes(range(256)) * 4000]
+    for rank in range(3):
+        with open(tmp_path / ("result.%d" % rank), "rb") as fh:
+            over_group, over_files, states = pickle.load(fh)
+        assert over_group == want and over_files == want
+        assert states == [{"rank": r, "n": len(want[r])} for r in range(3)]

@@ -2,9 +2,11 @@
 
 A child process sets sys.modules[name] = None for jax, jaxlib and fastp_tpu
 (so any import of them raises), imports every module of the package (the
-SE processor in pipeline/runner.py and the merge op among them), runs the
-cfg3, the merging cfg5 and the single-end cfg1 goldens through cli.main on
-the CPU, and checks the outputs and that no module of the three was loaded.
+SE processor in pipeline/runner.py, the merge op and the split of
+parallel/mesh.py among them), runs the cfg3 golden (on one device and split
+over two), the merging cfg5 and the single-end cfg1 goldens through cli.main
+on the CPU, and checks the outputs and that no module of the three was
+loaded.
 A second, static test reads every source file of the port and
 chip_smoke.py and fails on an import line that names fastp_tpu.  A third
 reads the thin client's path (`__main__.py` up to its import of `.cli`, and
@@ -29,6 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(fastp_tpu_torch.__path__,
 names = [n for n in names if n != "fastp_tpu_torch.__main__"]
 for n in names:
     importlib.import_module(n)
+assert "fastp_tpu_torch.parallel.mesh" in names
 from fastp_tpu_torch import cli
 from fastp_tpu_torch.pipeline.runner import SingleEndProcessor
 root = sys.argv[1]
@@ -38,6 +41,10 @@ for name, args, outs in (
         ("cfg3_pe_correction", ["-I", os.path.join(data, "R2.fq"), "-o",
                                 "out1.fq", "-O", "out2.fq", "--correction",
                                 "--cut_right"], ("out1.fq", "out2.fq")),
+        ("cfg3_pe_correction", ["-I", os.path.join(data, "R2.fq"), "-o",
+                                "out1.fq", "-O", "out2.fq", "--correction",
+                                "--cut_right", "--devices", "2"],
+         ("out1.fq", "out2.fq")),
         ("cfg5_merge", ["-I", os.path.join(data, "R2.fq"), "--merge",
                         "--merged_out", "merged.fq", "--out1", "out1.fq",
                         "--out2", "out2.fq", "--dedup", "--dup_calc_accuracy",
@@ -71,7 +78,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     assert "IMPORTED" in res.stdout
     n = int(res.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 41  # ops, pipeline, io, report, utils, parallel, cli, server, ...
+    assert n >= 42  # ops, pipeline, io, report, utils, parallel, cli, server, ...
 
 
 IMPORT_LINE = re.compile(r"^\s*(?:from\s+(\S+)\s+import\b|import\s+(.+))")
