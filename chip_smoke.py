@@ -15,7 +15,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  no multiple of the rows a block takes (8192 + 5, 3); the
                  byte compares the bench rows need and from them the
                  kernel's bound; CUDA-event timings of the kernel and of the
-                 plain version
+                 plain version; the bench rows once more launched from a
+                 worker thread on a side stream, as the batch loop does
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
@@ -26,10 +27,10 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  the run accumulates (the batch's sums stay on the card until
                  the end of the run)
   6. se       -- R1 of that corpus as single-end input with cfg1's flags
-  7. failed   -- the corpus with cfg8's flags; the kernel must launch at
-                 least twice per batch and every output stream is non-empty
-  8. merge    -- the corpus with cfg5's flags; the kernel must launch at
-                 least twice per batch (the analysis and the merge
+  7. failed   -- the corpus with cfg8's flags; the kernel must launch
+                 exactly twice per batch and every output stream is non-empty
+  8. merge    -- the corpus with cfg5's flags; the kernel must launch
+                 exactly twice per batch (the analysis and the merge
                  re-analysis), merged.fq is non-empty and the report's
                  merged_and_filtered section counts reads
   9. cpu      -- the first 20,000 pairs (reads) of phases 5 to 8, of a
@@ -53,43 +54,68 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  FASTP_TPU_NO_ACCUM=1 against phase cpu's (accumulating)
                  runs on the card, and the device-to-host bytes per batch
                  both ways
- 12. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
+ 12. pipeline -- the pipelined batch loop and the packed transfers at full
+                 size: the 1M-pair main path at FASTP_TPU_PREFETCH 1 and 3 and
+                 with FASTP_TPU_NO_INPUT_PACK=1, in turns (1, 3, plain, plain,
+                 3, 1), each equal to phase main's files and JSON with exactly
+                 one launch per batch, the walls, their medians and spreads,
+                 and the bytes per batch each way; se, failed and merge at
+                 prefetch 1 against their phases; 20,000-pair runs with each
+                 of FASTP_TPU_NO_P3, _NO_NIB, _NO_INPUT_PACK, _NO_SLIM and
+                 _NO_PACK against phase cpu's run on the card, with the input
+                 scheme each took and the bytes per batch each way
+                 (pipeline/device.py:fetch_stats); a job run as the resident
+                 server runs it, with the thread count before and after; a
+                 FASTP_TPU_PROFILE run that leaves a non-empty trace; then
+                 the FASTP_TPU_TIMING lines of every 1M-pair run so far
+ 13. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
                  jobs through the thin client (FASTP_TPU_SERVER): three
-                 20,000-pair jobs of the main path served and the same three
-                 as cold processes, both sets of wall times; the 1M-pair
-                 main job served, equal to phase main's files; a --merge
+                 20,000-pair jobs of the main path served and the same job
+                 once as a cold process, their wall times; the main path's
+                 first 200,000 pairs served, equal to the files of the same
+                 prefix run in this script's process; a --merge
                  --dedup job twice, the second equal to the first; `ping`
                  counts the jobs; a second `serve` on the live socket exits
                  non-zero; `shutdown` ends the server and removes the socket
- 13. procs    -- the 1M-pair main path with --local_processes 2 and 4 on
-                 the one card, and as one process of its own: the shards'
-                 files in order equal phase main's, the merged JSON too (but
-                 for the numbers in read1/read2_adapter_counts, whose maps
-                 cap per shard, as in fastp_tpu); --local_processes 2 again
+ 14. procs    -- the main path's first 200,000 pairs with --local_processes
+                 2 and 4 on the one card, and as one process of its own: the
+                 shards' files in order equal those of the same prefix run in
+                 this script's process, the merged JSON too (but for
+                 read1/read2_adapter_counts, whose maps cap per shard, as
+                 in fastp_tpu: those two lines equal the maps of each
+                 shard's records run alone in this script's process, added
+                 up); --local_processes 2 again
                  with FASTP_TPU_SERVERS naming two resident servers on the
                  one card, equal to the plain --local_processes 2 run, each
                  shard inside its server; --merge --dedup with
-                 --local_processes 2 on 20,000 pairs against one process
-                 (cfg5's flags less --overrepresentation_analysis, whose
-                 sampling goes by a read's index within its process)
- 14. dist     -- the 1M-pair main path as two processes that exchange over
-                 torch.distributed (gloo on 127.0.0.1, MASTER_ADDR,
-                 MASTER_PORT, RANK, WORLD_SIZE; no FASTP_TPU_FS_EXCHANGE),
-                 both on the one card: the ranks' files in order equal phase
-                 main's, the merged JSON too (less the adapter-count numbers)
- 15. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
-                 overlap checks through the kernel at one pair row
+                 --local_processes 2 on 20,000 pairs against a run in this
+                 script's process (cfg5's flags less
+                 --overrepresentation_analysis, whose sampling goes by a
+                 read's index within its process)
+ 15. dist     -- the main path's first 200,000 pairs as two processes that
+                 exchange over torch.distributed (gloo on 127.0.0.1,
+                 MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; no
+                 FASTP_TPU_FS_EXCHANGE),
+                 both on the one card: the ranks' files in order equal those
+                 of the same prefix run in this script's process, the merged
+                 JSON too (read1/read2_adapter_counts held as in phase 14)
  16. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
                  paired samples and one single-end sample against direct
-                 runs of the same arguments; overall.html is written
- 17. no_card  -- serve --warm, test, --local_processes 2 and the batch
+                 runs of the same arguments (in this script's process);
+                 overall.html is written
+ 17. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
+                 overlap checks through the kernel at one pair row
+ 18. no_card  -- serve --warm, test, --local_processes 2 and the batch
                  runner with the card hidden and no request for the CPU:
-                 each exits non-zero and writes nothing
-Phases 12 to 17 start the port as a user would, in processes of their own;
+                 each exits non-zero and writes nothing (while the self-test's
+                 process runs)
+Phases 13 to 18 start the port as a user would, in processes of their own;
 each job there appends the overlap kernel's launches to the file that
 FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just before the phase and read
-just after.
-Then a JSON line of the kernel results and, last, the device line.
+just after.  The corpus is written by tools/make_synth.py in a process of
+its own while phases 3 and 4 run.
+Then a JSON line of the walls, one of the seconds each phase took, the card,
+a JSON line of the kernel results and, last, the device line.
 
     python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu]
 
@@ -97,13 +123,22 @@ runs phases 1 to 3 alone; with --old-kernel it also builds an earlier
 version of the kernel's source (same C interface), checks it against the
 plain version and times the two in turns (old, new, new, old).
 
-    python3 chip_smoke.py --accum-turns ROUNDS
+    python3 chip_smoke.py --turns VAR=VALUE ROUNDS
 
 runs phases 1 and 2 and then the 1M-pair main path four times per round in
-turns: FASTP_TPU_NO_ACCUM=1, accumulating, accumulating,
-FASTP_TPU_NO_ACCUM=1, and prints the walls and the two medians (equal
-outputs required): what the run accumulator does to a wall, read within
-one call.
+turns: as it is, with VAR=VALUE in the environment, with it again, as it
+is (for example FASTP_TPU_NO_ACCUM=1, FASTP_TPU_NO_INPUT_PACK=1 or
+FASTP_TPU_PREFETCH=1).  Prints every run's wall, the dispatch worker's
+seconds, its transfers from the card and the schemes its inputs went up
+in, then the medians and spreads (equal outputs required): what one
+setting does to a wall, read within one call.
+
+    python3 chip_smoke.py --against CHECKOUT
+
+runs phases 1 and 2 and then the four 1M-pair paths from an earlier
+checkout of the repository (a directory that holds its fastp_tpu_torch/)
+and from this one, a process each, in turns earlier, this, this, earlier;
+outputs must be equal; prints the walls.
 
 The script imports no JAX and nothing of fastp_tpu.
 """
@@ -133,6 +168,7 @@ from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
 from fastp_tpu_torch.io import native as native_mod  # noqa: E402
 from fastp_tpu_torch.ops import overlap_cuda  # noqa: E402
+from fastp_tpu_torch.parallel import multihost  # noqa: E402
 from fastp_tpu_torch.pipeline import device as step_device  # noqa: E402
 from fastp_tpu_torch.ops.overlap import (COMPLETE_COMPARE_REQUIRE,  # noqa: E402
                                          sweep_select_plain)
@@ -178,6 +214,11 @@ B, L = 8192, 160
 OVERLAP_SETTINGS = ((5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0))
 TIMED_SETTINGS = (OVERLAP_SETTINGS[0], OVERLAP_SETTINGS[2])
 MAIN_PAIRS = 1_000_000
+# the first MID_PAIRS of the corpus: what the phases that start the port in
+# processes of their own (serve's large job, procs, dist) run, so that the
+# script keeps inside its time; each is held to one run of the same prefix
+# in this process
+MID_PAIRS = 200_000
 CPU_PAIRS = 20_000
 # further shapes the kernel is held to the plain version at, on adversarial
 # rows: (B, L), the PE251 width and ragged row counts
@@ -492,6 +533,7 @@ def phase_kernel(old_source=None):
     accepted = {}
     timing = {}
     bounds = {}
+    side_stream_launches = 0
     for name, rows_np in (("bench", _bench_rows(rng)),
                           ("adversarial", _adversarial_rows(rng))):
         tensors = tuple(torch.from_numpy(x).cuda() for x in rows_np)
@@ -516,8 +558,25 @@ def phase_kernel(old_source=None):
                         *tensors, *setting))}
         if name == "bench" and old_source:
             compare_with_old_kernel(old_source, tensors, wants)
+        if name == "bench":
+            # as the batch loop launches it: from a worker thread, on a
+            # side stream
+            torch.cuda.synchronize()
+            for setting in TIMED_SETTINGS:
+                counted = overlap_cuda.sweep_select.launches
+                got = _on_worker_stream(
+                    lambda: overlap_cuda.sweep_select(*tensors, *setting))
+                check(overlap_cuda.sweep_select.launches == counted + 1,
+                      "a launch from a worker thread was not counted once")
+                worst = max(worst, _same_as_plain(
+                    got, wants[setting], "%s at %s from a worker thread on "
+                    "a side stream" % (name, setting)))
+                rows += B
+                side_stream_launches += 1
     check(all(accepted[pct] > 0 for _, _, pct in OVERLAP_SETTINGS),
           "a setting accepted no row: %s" % accepted)
+    check(side_stream_launches == len(TIMED_SETTINGS),
+          "the kernel was not launched from a worker thread on a side stream")
     edge = []
     for rows_n, width in EDGE_SHAPES:
         tensors = tuple(torch.from_numpy(x).cuda() for x in
@@ -531,8 +590,10 @@ def phase_kernel(old_source=None):
         rows += rows_n * len(OVERLAP_SETTINGS)
         edge.append("B=%d L=%d" % (rows_n, width))
     print("phase kernel: overlap_sweep == plain on %d rows (accepted by "
-          "diff_pct: %s; also at %s), max abs err %d; B=%d L=%d: %s"
-          % (rows, accepted, ", ".join(edge), worst, B, L, "; ".join(
+          "diff_pct: %s; also at %s; the bench rows also in %d launches from a "
+          "worker thread on a side stream), max abs err %d; B=%d L=%d: %s"
+          % (rows, accepted, ", ".join(edge), side_stream_launches, worst, B,
+             L, "; ".join(
               "diff_pct %s kernel %.4f ms of device time per launch (CUDA-"
               "graph replays of 20 launches, median of 15), %.4f ms for one "
               "call between two events, plain %.4f ms (median of 25); needs "
@@ -576,14 +637,28 @@ def phase_golden(work):
           % "; ".join(compared), flush=True)
 
 
-def _make_corpus(work):
+def _start_corpus(work):
+    """tools/make_synth.py writing the corpus, as a process of its own (one
+    core for most of a minute); _finish_corpus waits for it."""
     r1 = os.path.join(work, "R1.fq")
     r2 = os.path.join(work, "R2.fq")
-    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
-                    "--reads", str(MAIN_PAIRS), "--seed", "42",
-                    "--out1", r1, "--out2", r2],
-                   check=True, capture_output=True)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
+         "--reads", str(MAIN_PAIRS), "--seed", "42", "--out1", r1,
+         "--out2", r2], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    return proc, r1, r2
+
+
+def _finish_corpus(started):
+    proc, r1, r2 = started
+    _, err = proc.communicate()
+    check(proc.returncode == 0, "tools/make_synth.py failed:\n%s" % err[-3000:])
     return r1, r2
+
+
+def _make_corpus(work):
+    return _finish_corpus(_start_corpus(work))
 
 
 def _run_in_process(argv, cwd, device="cuda", **env):
@@ -608,6 +683,11 @@ def _run_in_process(argv, cwd, device="cuda", **env):
     return res, log.getvalue()
 
 
+# name of a driven run -> its FASTP_TPU_TIMING lines
+TIMING_LINES = {}
+TIMING_ON = {"FASTP_TPU_TIMING": "1"}
+
+
 def _drive(work, name, args, device="cuda", says="running on cuda", **env):
     """One path through cli.run on the card, with the kernel counts set to
     0 just before and read just after.  Returns (result, run directory,
@@ -623,6 +703,9 @@ def _drive(work, name, args, device="cuda", says="running on cuda", **env):
     launches = overlap_cuda.sweep_select.launches
     check(says in log, "%s run log does not say \"%s\":\n%s"
           % (name, says, log[:400]))
+    timing = [ln for ln in log.splitlines() if ln.startswith("TIMING ")]
+    if timing:
+        TIMING_LINES[name] = timing
     return res, d, wall, launches
 
 
@@ -642,11 +725,11 @@ def _reads_after(d):
 def phase_main(work, r1, r2):
     res, d, wall, launches = _drive(
         work, "main", ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
-                       *BENCH_FLAGS])
+                       *BENCH_FLAGS], **TIMING_ON)
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "main run read %d pairs" % reads)
-    check(launches >= batches > 0,
+    check(launches == batches == MAIN_BATCHES,
           "overlap kernel launched %d times for %d batches" % (launches, batches))
     _nonempty_outputs(d, "main")
     after = _reads_after(d)
@@ -659,7 +742,8 @@ def phase_main(work, r1, r2):
 
 
 def phase_se(work, r1):
-    res, d, wall, launches = _drive(work, "se", ["-i", r1, "-o", "out.fq"])
+    res, d, wall, launches = _drive(work, "se", ["-i", r1, "-o", "out.fq"],
+                                    **TIMING_ON)
     reads = res["pre"].reads
     check(reads == MAIN_PAIRS, "se run read %d reads" % reads)
     check(launches == 0, "the SE path launched the overlap kernel")
@@ -676,11 +760,11 @@ def phase_se(work, r1):
 def phase_failed(work, r1, r2):
     res, d, wall, launches = _drive(
         work, "failed", ["-i", r1, "-I", r2, "-o", "o1.fq", "-O", "o2.fq",
-                         *CFG8_FLAGS])
+                         *CFG8_FLAGS], **TIMING_ON)
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "failed run read %d pairs" % reads)
-    check(launches >= 2 * batches > 0,
+    check(launches == 2 * batches == 2 * MAIN_BATCHES,
           "overlap kernel launched %d times for %d batches (want twice per "
           "batch: the analysis and the --overlapped_out re-analysis)"
           % (launches, batches))
@@ -699,11 +783,11 @@ def phase_failed(work, r1, r2):
 def phase_merge(work, r1, r2):
     res, d, wall, launches = _drive(
         work, "merge", ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq",
-                        *CFG5_FLAGS])
+                        *CFG5_FLAGS], **TIMING_ON)
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "merge run read %d pairs" % reads)
-    check(launches >= 2 * batches > 0,
+    check(launches == 2 * batches == 2 * MAIN_BATCHES,
           "overlap kernel launched %d times for %d batches (want twice per "
           "batch: the analysis and the merge re-analysis)" % (launches, batches))
     files = _nonempty_outputs(d, "merge")
@@ -795,7 +879,10 @@ def phase_cpu(work, r1, r2):
     for name in paths:
         cpu_dir = os.path.join(work, "cmp_cpu_" + name)
         os.makedirs(cpu_dir)
-        procs[name] = (cpu_dir, start(name, cpu_dir, **{DEVICE_ENV: "cpu"}))
+        # seven CPU runs at once: one torch thread each, not a pool per
+        # process sized to every core
+        procs[name] = (cpu_dir, start(name, cpu_dir, OMP_NUM_THREADS="1",
+                                      **{DEVICE_ENV: "cpu"}))
     compared = []
     for name, (cpu_dir, proc) in procs.items():
         finish(name, proc, "cpu")
@@ -837,6 +924,7 @@ def _run_without_card(work, args):
 
 LAUNCH_LOG_ENV = cli.LAUNCH_LOG_ENV
 MAIN_BATCHES = -(-MAIN_PAIRS // B)
+MID_BATCHES = -(-MID_PAIRS // B)
 CPU_BATCHES = -(-CPU_PAIRS // B)
 
 
@@ -926,8 +1014,8 @@ def phase_accum(work, r1, r2):
                  "main, FASTP_TPU_NO_ACCUM=1, vs phase cpu's run on the card")
     print("phase accum: %d pairs, main path and --merge --dedup, with and "
           "without FASTP_TPU_NO_ACCUM=1: the same files and JSON (the main "
-          "path's also phase cpu's on the card); device-to-host bytes (every "
-          "leaf as int64): %s"
+          "path's also phase cpu's on the card); device-to-host bytes (one "
+          "packed buffer per batch): %s"
           % (CPU_PAIRS, "; ".join(
               "%s %s: %d bytes in %d transfers for %d batches = %.0f bytes "
               "per batch" % (name, mode, nbytes, fetches, batches,
@@ -935,6 +1023,202 @@ def phase_accum(work, r1, r2):
               for (name, mode), (nbytes, fetches, batches) in moved.items())),
           flush=True)
     return {"%s_%s" % k: v[0] for k, v in moved.items()}
+
+
+def _on_worker_stream(fn):
+    """fn() on a thread of its own with a side stream current, as the batch
+    loop's dispatch worker runs the step; returns fn's result after the
+    stream has drained.  An exception of the thread is raised here."""
+    box = {}
+
+    def work():
+        try:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                box["stream_was_side"] = (
+                    torch.cuda.current_stream().cuda_stream == side.cuda_stream
+                    != torch.cuda.default_stream().cuda_stream)
+                box["res"] = fn()
+            side.synchronize()
+        except BaseException as exc:   # handed to the caller, which raises
+            box["exc"] = exc
+
+    t = threading.Thread(target=work, name="smoke_dispatch")
+    t.start()
+    t.join()
+    if "exc" in box:
+        raise box["exc"]
+    check(box["stream_was_side"], "the worker thread's stream was not the "
+          "side stream")
+    return box["res"]
+
+
+def _settled_threads():
+    """threading.active_count() once the short-lived threads that zero a
+    finished job's duplicate-filter buffers (duplicate.py: rezero) have
+    ended; they belong to no pool and end by themselves."""
+    for t in threading.enumerate():
+        if "(rezero)" in t.name:
+            t.join(timeout=120)
+    return threading.active_count()
+
+
+def _moved(fn):
+    """(fn's result, what pipeline/device.py:fetch_stats counted meanwhile)."""
+    before = dict(step_device.fetch_stats)
+    res = fn()
+    return res, {k: v - before[k] for k, v in step_device.fetch_stats.items()}
+
+
+INT64_FETCH_BYTES = 1131504   # main path per batch before the packed fetch
+
+
+def phase_pipeline(work, r1, r2):
+    """The pipelined batch loop and the packed transfers at full size.
+    Returns ({name: launches}, {name: wall seconds or bytes})."""
+    pe = ["-i", r1, "-I", r2]
+    main = pe + ["-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    launches, numbers = {}, {}
+    # 1. the main path at prefetch 1 and 3 and with plain inputs, in turns
+    turns = (("prefetch1", {"FASTP_TPU_PREFETCH": "1"}),
+             ("prefetch3", {"FASTP_TPU_PREFETCH": "3"}),
+             ("plain_inputs", {"FASTP_TPU_NO_INPUT_PACK": "1"}),
+             ("plain_inputs", {"FASTP_TPU_NO_INPUT_PACK": "1"}),
+             ("prefetch3", {"FASTP_TPU_PREFETCH": "3"}),
+             ("prefetch1", {"FASTP_TPU_PREFETCH": "1"}))
+    walls, kinds, per_batch = [], {}, {}
+    for k, (mode, env) in enumerate(turns):
+        name = "pipe_main_%d_%s" % (k, mode)
+        (res, d, wall, n), moved = _moved(lambda: _drive(
+            work, name, main, **env, **TIMING_ON))
+        check(n == res["batches"] == MAIN_BATCHES,
+              "%s: %d overlap kernel launches for %d batches"
+              % (name, n, res["batches"]))
+        same_outputs(d, os.path.join(work, "main"), name + " vs phase main")
+        shutil.rmtree(d)
+        walls.append((mode, wall))
+        kinds[mode] = res["input_kinds"]
+        per_batch[mode] = (moved["upload_bytes"] / MAIN_BATCHES,
+                           moved["bytes"] / MAIN_BATCHES)
+        launches[name] = n
+    check(set(kinds["plain_inputs"]) == {"plain"}
+          and "plain" not in kinds["prefetch3"],
+          "input schemes per batch: %s" % kinds)
+    medians = {mode: float(np.median([w for m, w in walls if m == mode]))
+               for mode in ("prefetch1", "prefetch3", "plain_inputs")}
+    spread = {mode: max(w for m, w in walls if m == mode)
+              - min(w for m, w in walls if m == mode) for mode in medians}
+    numbers["main_walls_in_turns"] = walls
+    numbers["main_medians"] = medians
+    numbers["main_spreads"] = spread
+    numbers["main_input_kinds"] = kinds
+    # 2. se, failed, merge at prefetch 1 against their phases (prefetch 3)
+    others = {"se": (["-i", r1, "-o", "out.fq"], 0),
+              "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], 2),
+              "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS],
+                        2)}
+    other_walls = {}
+    for path, (args, per) in others.items():
+        name = "pipe_%s_prefetch1" % path
+        res, d, wall, n = _drive(work, name, args, FASTP_TPU_PREFETCH="1",
+                                 **TIMING_ON)
+        check(n == per * MAIN_BATCHES and res["batches"] == MAIN_BATCHES,
+              "%s: %d overlap kernel launches for %d batches"
+              % (name, n, res["batches"]))
+        same_outputs(d, os.path.join(work, path),
+                     "%s at prefetch 1 vs phase %s" % (path, path))
+        shutil.rmtree(d)
+        other_walls[path] = wall
+        launches[name] = n
+    numbers["prefetch1_walls"] = other_walls
+    # 3. bytes each way per batch, by input scheme and by fetch packing, on
+    #    20,000 pairs, each equal to phase cpu's run on the card
+    short = main + ["--reads_to_process", str(CPU_PAIRS)]
+    schemes = {}
+    for label, env in (("default", {}),
+                       ("no_p3", {"FASTP_TPU_NO_P3": "1"}),
+                       ("no_nib", {"FASTP_TPU_NO_NIB": "1"}),
+                       ("no_input_pack", {"FASTP_TPU_NO_INPUT_PACK": "1"}),
+                       ("no_slim", {"FASTP_TPU_NO_SLIM": "1"}),
+                       ("no_pack", {"FASTP_TPU_NO_PACK": "1"})):
+        name = "pipe_bytes_" + label
+        (res, d, _, n), moved = _moved(lambda: _drive(work, name, short,
+                                                      **env))
+        check(n == res["batches"] == CPU_BATCHES, "%s: %d launches" % (name, n))
+        same_outputs(d, os.path.join(work, "cmp_gpu_main"),
+                     name + " vs phase cpu's run on the card")
+        # the last transfer of an accumulating run is the run's sums
+        schemes[label] = {
+            "inputs": res["input_kinds"],
+            "h2d_bytes_per_batch": moved["upload_bytes"] / CPU_BATCHES,
+            "d2h_bytes_per_batch": moved["bytes"] / CPU_BATCHES,
+            "d2h_transfers": moved["fetches"]}
+        launches[name] = n
+    want_kind = {"no_p3": "nib", "no_nib": "bq", "no_input_pack": "plain"}
+    for label, kind in want_kind.items():
+        check(set(schemes[label]["inputs"]) == {kind},
+              "%s packed its inputs as %s" % (label, schemes[label]["inputs"]))
+    check(schemes["default"]["d2h_transfers"] == CPU_BATCHES + 1
+          and schemes["no_pack"]["d2h_transfers"] > 10 * CPU_BATCHES,
+          "transfers: %s" % schemes)
+    check(schemes["default"]["d2h_bytes_per_batch"]
+          < schemes["no_slim"]["d2h_bytes_per_batch"] < INT64_FETCH_BYTES,
+          "fetched bytes per batch: %s" % schemes)
+    check(schemes["no_nib"]["h2d_bytes_per_batch"]
+          < 0.6 * schemes["no_input_pack"]["h2d_bytes_per_batch"]
+          and schemes["no_p3"]["h2d_bytes_per_batch"]
+          < 0.6 * schemes["no_nib"]["h2d_bytes_per_batch"],
+          "uploaded bytes per batch: %s" % schemes)
+    numbers["bytes_per_batch_%d_pairs" % CPU_PAIRS] = schemes
+    # 4. a job run as the resident server runs it: no thread is left
+    from fastp_tpu_torch import server
+    served = os.path.join(work, "pipe_served")
+    os.makedirs(served)
+    before = _settled_threads()
+    overlap_cuda.sweep_select.launches = 0
+    rc = server._run_job(["fastp_tpu_torch", *short], served, None)
+    launches["pipe_served_job"] = overlap_cuda.sweep_select.launches
+    after = _settled_threads()
+    check(rc == 0 and launches["pipe_served_job"] == CPU_BATCHES,
+          "the served job gave %d, %d launches"
+          % (rc, launches["pipe_served_job"]))
+    check(after == before, "a served job left threads: %d before, %d after: %s"
+          % (before, after, [t.name for t in threading.enumerate()]))
+    same_outputs(served, os.path.join(work, "cmp_gpu_main"),
+                 "the served job vs phase cpu's run on the card")
+    # 5. FASTP_TPU_PROFILE leaves a trace of a window of batches
+    trace_dir = os.path.join(work, "pipe_trace")
+    res, d, _, n = _drive(work, "pipe_profile", short,
+                          FASTP_TPU_PROFILE=trace_dir)
+    launches["pipe_profile"] = n
+    same_outputs(d, os.path.join(work, "cmp_gpu_main"),
+                 "the traced run vs phase cpu's run on the card")
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1, "FASTP_TPU_PROFILE wrote %s" % traces)
+    with open(os.path.join(trace_dir, traces[0])) as fh:
+        text = fh.read()
+    check(len(text) > 10000 and '"traceEvents"' in text,
+          "the trace holds %d bytes" % len(text))
+    numbers["trace"] = {"bytes": len(text),
+                        "kernel_events": text.count('"cat": "kernel"'),
+                        "overlap_sweep_events": text.count("overlap_sweep")}
+    print("phase pipeline: %d pairs, main path, wall seconds in turns: %s; "
+          "medians %s, spreads %s; every run %d launches, files and JSON "
+          "equal to phase main's; input schemes (batches): %s; bytes per "
+          "batch up / down at 1M pairs: %s (the fetch was %d as int64); "
+          "se, failed, merge at FASTP_TPU_PREFETCH=1 equal to their phases, "
+          "walls %s; %d-pair runs equal to phase cpu's on the card: %s; a "
+          "served job (server._run_job in this process): %d threads before, "
+          "%d after; FASTP_TPU_PROFILE trace: %s"
+          % (MAIN_PAIRS, ", ".join("%s %.3f" % w for w in walls),
+             json.dumps(medians), json.dumps(spread), MAIN_BATCHES,
+             json.dumps(kinds), json.dumps(per_batch), INT64_FETCH_BYTES,
+             json.dumps(other_walls), CPU_PAIRS, json.dumps(schemes), before,
+             after, json.dumps(numbers["trace"])), flush=True)
+    for name, lines in TIMING_LINES.items():
+        for line in lines:
+            print("timing %s: %s" % (name, line), flush=True)
+    return launches, numbers
 
 
 def _prefix(src, dst, records, skip=0):
@@ -990,33 +1274,90 @@ def _same_file(path_a, path_b, what):
 
 
 ADAPTER_COUNT = re.compile(r'"([A-Za-z]+)":(\d+)')
+ADAPTER_KEYS = ("read1_adapter_counts", "read2_adapter_counts")
 
 
 def _without_adapter_counts(text):
-    """A report with the numbers of its read1/read2_adapter_counts taken
-    out (the sequences named there stay); returns (text, the sum of the
-    numbers taken out)."""
+    """A report with the values of read1/read2_adapter_counts taken out
+    (the keys stay); returns (text, the sum of the numbers taken out)."""
     lines, taken = [], 0
     for line in normalize_json(text).split("\n"):
         if "_adapter_counts" in line:
             taken += sum(int(m.group(2)) for m in ADAPTER_COUNT.finditer(line))
-            line = ADAPTER_COUNT.sub(r'"\1"', line)
+            line = line.split(":", 1)[0]
         lines.append(line)
     return "\n".join(lines), taken
 
 
-def _same_as_shards(single_dir, shard_dir, n, names, what, capped=False):
+def _reported_adapters(counts):
+    """What a report shows of a map of trimmed adapters: every sequence that
+    has at least one percent of the map's total, the rest as "others"."""
+    total = sum(counts.values())
+    shown = {seq: n for seq, n in counts.items()
+             if total and n / total >= 0.01}
+    rest = total - sum(shown.values())
+    if rest > 0:
+        shown["others"] = rest
+    return shown
+
+
+# number of shards -> what _sharded_adapter_counts found for it
+_SHARD_ADAPTERS = {}
+
+
+def _sharded_adapter_counts(work, m1, m2, n):
+    """read1/read2_adapter_counts as a report merged from n shards of the
+    MID_PAIRS prefix has to show them.  Each shard's records run alone
+    through the main path in this process (no launcher, no exchange, no
+    merge); the runs' maps of trimmed adapters are added sequence by
+    sequence, and the report's one-percent rule is applied to the sums.
+    The shards' first records are multihost.shard_ranges' byte offsets,
+    counted out in records here.  Returns the two dicts."""
+    if n in _SHARD_ADAPTERS:
+        return _SHARD_ADAPTERS[n]
+    ranges1, _ = multihost.shard_ranges(m1, m2, n)
+    with open(m1, "rb") as fh:
+        data = fh.read()
+    cuts = [data.count(b"\n", 0, start) // 4 for start, _ in ranges1]
+    cuts.append(MID_PAIRS)
+    del data
+    sums = ({}, {})
+    for k in range(n):
+        d = os.path.join(work, "slice_%d_%d" % (n, k))
+        os.makedirs(d)
+        records = cuts[k + 1] - cuts[k]
+        s1 = _prefix(m1, os.path.join(d, "S1.fq"), records, skip=cuts[k])
+        s2 = _prefix(m2, os.path.join(d, "S2.fq"), records, skip=cuts[k])
+        res, run, _, _ = _drive(
+            d, "run", ["-i", s1, "-I", s2, "-o", "out1.fq", "-O", "out2.fq",
+                       *BENCH_FLAGS])
+        check(res["pre1"].reads == records, "slice %d of %d read %d pairs, "
+              "not %d" % (k, n, res["pre1"].reads, records))
+        for total, part in zip(sums, (res["filter"].adapter1,
+                                      res["filter"].adapter2)):
+            for seq, count in part.items():
+                total[seq] = total.get(seq, 0) + count
+        shutil.rmtree(d)
+    _SHARD_ADAPTERS[n] = tuple(_reported_adapters(total) for total in sums)
+    return _SHARD_ADAPTERS[n]
+
+
+def _same_as_shards(single_dir, shard_dir, n, names, what, adapters=None):
     """Each of `names` in single_dir equals the shards' files 0001.name ..
     000n.name of shard_dir laid end to end; fastp.json after the
-    command-line normalisation (the shards merge into one report).  With
-    `capped`, the numbers of read1/read2_adapter_counts are left out of the
-    comparison (the sequences named there are not) and their sums are
-    returned as (single, sharded): the maps of trimmed adapters stop taking
-    new sequences once they hold 20,000, and a pair whose first adapter was
-    refused is not recorded for the second either (report/filter_model.py,
-    as the reference's threads and fastp_tpu's shards), each shard's map
-    for itself, so on a large input these counts depend on how the input
-    was cut.  adapter_trimmed_reads and adapter_trimmed_bases are exact."""
+    command-line normalisation (the shards merge into one report).
+
+    With `adapters` (what _sharded_adapter_counts returns for n), the
+    sharded report's read1/read2_adapter_counts are held to those two dicts
+    and not to the single process's, and the sums of the numbers on those
+    lines are returned as (single, sharded).  The maps of trimmed adapters
+    stop taking new sequences once they hold 20,000, and a pair whose first
+    adapter was refused is not recorded for the second either
+    (report/filter_model.py, as the reference's threads and fastp_tpu's
+    shards), each shard's map for itself.  So on a large input the maps'
+    totals depend on how the input was cut, and with them which sequences
+    reach the one percent that gets a sequence named.  adapter_trimmed_reads
+    and adapter_trimmed_bases are exact."""
     for name in names:
         joined = os.path.join(shard_dir, "joined." + name)
         with open(joined, "wb") as out:
@@ -1032,7 +1373,11 @@ def _same_as_shards(single_dir, shard_dir, n, names, what, capped=False):
             open(os.path.join(shard_dir, "fastp.json")) as fb:
         a, b = fa.read(), fb.read()
     taken = (0, 0)
-    if capped:
+    if adapters is not None:
+        shown = json.loads(b)["adapter_cutting"]
+        for key, want in zip(ADAPTER_KEYS, adapters):
+            check(shown[key] == want, "%s: %s is %s, the shards' maps added "
+                  "up give %s" % (what, key, shown[key], want))
         (a, b), taken = zip(_without_adapter_counts(a),
                             _without_adapter_counts(b))
     check(normalize_json(a) == normalize_json(b),
@@ -1052,16 +1397,16 @@ def _cwd(path):
         os.chdir(old)
 
 
-def phase_serve(work, r1, r2, p1, p2):
+def phase_serve(work, m1, m2, p1, p2):
     """The resident server on the card, its jobs through the thin client.
     The socket is named relative to the working directories, so that its
     length does not depend on where the checkout lies.  Returns the launches
-    of the served 1M-pair job and of all served jobs."""
+    of the served MID_PAIRS job and of all served jobs."""
     d = os.path.join(work, "serve")
     os.makedirs(d)
     log = LaunchLog(work, "serve")
     small = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
-    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    big = ["-i", m1, "-I", m2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
     merge = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS]
     warm = ["fastp_tpu_torch", "-i", p1, "-I", p2, "-o", "warm1.fq", "-O",
             "warm2.fq", "-j", "warm.json", "-h", "warm.html", *BENCH_FLAGS]
@@ -1087,19 +1432,18 @@ def phase_serve(work, r1, r2, p1, p2):
         pid = int(lines[-1].split()[1])
         check(pid == srv.pid, "READY names pid %d, the server is %d"
               % (pid, srv.pid))
-        served, cold = [], []
+        served = []
         for k in range(3):
             _, err, wall = _port_job(small, os.path.join(d, "served%d" % k),
                                      **served_env)
             check("running on cuda" in err, "served job %d did not run on "
                   "the card:\n%s" % (k, err[-2000:]))
             served.append(wall)
+        _, err, cold = _port_job(small, os.path.join(d, "cold"))
+        check("running on cuda" in err, "the cold job did not use CUDA")
         for k in range(3):
-            _, err, wall = _port_job(small, os.path.join(d, "cold%d" % k))
-            check("running on cuda" in err, "cold job %d did not use CUDA" % k)
-            cold.append(wall)
             same_outputs(os.path.join(d, "served%d" % k),
-                         os.path.join(d, "cold%d" % k), "served vs cold job")
+                         os.path.join(d, "cold"), "served vs cold job")
         small_launches = log.launches()
         check(len(log.jobs()) == 3 and all(
             job["pid"] == pid for job in log.jobs()),
@@ -1107,11 +1451,12 @@ def phase_serve(work, r1, r2, p1, p2):
         log.reset()
         _, err, big_wall = _port_job(big, os.path.join(d, "big"), **served_env)
         big_launches = log.launches()
-        check(big_launches >= MAIN_BATCHES, "the served 1M-pair job launched "
+        check(big_launches >= MID_BATCHES, "the served %d-pair job launched "
               "the overlap kernel %d times for %d batches"
-              % (big_launches, MAIN_BATCHES))
-        same_outputs(os.path.join(d, "big"), os.path.join(work, "main"),
-                     "served 1M-pair job vs phase main")
+              % (MID_PAIRS, big_launches, MID_BATCHES))
+        same_outputs(os.path.join(d, "big"), os.path.join(work, "main_mid"),
+                     "served %d-pair job vs the same prefix in this process"
+                     % MID_PAIRS)
         merge_walls = []
         for k in range(2):
             _, _, wall = _port_job(merge, os.path.join(d, "merge%d" % k),
@@ -1148,20 +1493,21 @@ def phase_serve(work, r1, r2, p1, p2):
         srv.stdout.close()
     print("phase serve: READY %.3f s after start (--warm-run of %d pairs); "
           "%d-pair main-path job, wall seconds of `python -m fastp_tpu_torch`: "
-          "served %s; cold %s; outputs equal; 1M-pair main job served in "
-          "%.3f s = %.0f pairs/s, %d overlap kernel launches, files and JSON "
-          "equal to phase main's; --merge --dedup job served twice (%s s), "
+          "served %s; cold (once) %.3f; outputs equal; %d-pair main job "
+          "served in %.3f s = %.0f pairs/s, %d overlap kernel launches, files "
+          "and JSON equal to the same prefix run in this process; --merge "
+          "--dedup job served twice (%s s), "
           "equal; ping: %s; second serve exits %d; shutdown rc 0, socket "
           "removed"
           % (ready, CPU_PAIRS, CPU_PAIRS,
-             ", ".join("%.3f" % w for w in served),
-             ", ".join("%.3f" % w for w in cold), big_wall,
-             MAIN_PAIRS / big_wall, big_launches,
+             ", ".join("%.3f" % w for w in served), cold, MID_PAIRS, big_wall,
+             MID_PAIRS / big_wall, big_launches,
              ", ".join("%.3f" % w for w in merge_walls), json.dumps(pong),
              second.returncode), flush=True)
-    return {"serve_1m": big_launches, "serve_all_jobs": total_launches,
-            "walls": {"served": served, "cold": cold, "served_1m": big_wall,
-                      "ready": ready}}
+    return {"serve_%d_pairs" % MID_PAIRS: big_launches,
+            "serve_all_jobs": total_launches,
+            "walls": {"served": served, "cold": cold,
+                      "served_%d_pairs" % MID_PAIRS: big_wall, "ready": ready}}
 
 
 def _time_used(log):
@@ -1171,23 +1517,24 @@ def _time_used(log):
     return int(m.group(1)) if m else -1
 
 
-def phase_procs(work, r1, r2, p1, p2):
+def phase_procs(work, m1, m2, p1, p2):
     """--local_processes on the one card.  Returns {name: launches}."""
     d = os.path.join(work, "procs")
     log = LaunchLog(work, "procs")
-    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    big = ["-i", m1, "-I", m2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    mid = os.path.join(work, "main_mid")
     merge = ["-i", p1, "-I", p2, "-o", "out1.fq", "-O", "out2.fq",
              *MERGE_DEDUP_FLAGS]
     out = {}
     walls = {}
     others = {}
     # N = 1 as a user starts it: a process of its own, start-up included
-    # (phase main ran in this script's process, which held the card already)
+    # (the runs in this script's process find the card held already)
     used = {}   # the job's own "time used" line: the wall less start-up
     _, err, walls[1] = _port_job(big, os.path.join(d, "n1"))
     used[1] = _time_used(err)
-    same_outputs(os.path.join(d, "n1"), os.path.join(work, "main"),
-                 "a process of its own vs phase main")
+    same_outputs(os.path.join(d, "n1"), mid,
+                 "a process of its own vs the same prefix in this process")
     for n in (2, 4):
         log.reset()
         nd = os.path.join(d, "n%d" % n)
@@ -1199,18 +1546,19 @@ def phase_procs(work, r1, r2, p1, p2):
               "--local_processes %d logged %s" % (n, jobs))
         out["procs_%d" % n] = log.launches()
         check(all(job["overlap_sweep"] > 0 for job in jobs)
-              and out["procs_%d" % n] >= MAIN_BATCHES,
+              and out["procs_%d" % n] >= MID_BATCHES,
               "--local_processes %d launched the overlap kernel %s times for "
               "%d batches" % (n, [job["overlap_sweep"] for job in jobs],
-                              MAIN_BATCHES))
+                              MID_BATCHES))
         others[n] = _same_as_shards(
-            os.path.join(work, "main"), nd, n, ("out1.fq", "out2.fq"),
-            "--local_processes %d vs phase main" % n, capped=True)
+            mid, nd, n, ("out1.fq", "out2.fq"),
+            "--local_processes %d vs one process" % n,
+            adapters=_sharded_adapter_counts(work, m1, m2, n))
     # N = 2 again, each shard sent to a resident server of its own
     # (FASTP_TPU_SERVERS), both servers on the one card
     served_wall, out["procs_2_servers"] = _shards_in_servers(d, big, log)
+    _, _, single_wall, _ = _drive(d, "merge_single", merge)
     log.reset()
-    _, _, single_wall = _port_job(merge, os.path.join(d, "merge_single"))
     _, _, merge_wall = _port_job(merge + ["--local_processes", "2"],
                                  os.path.join(d, "merge_n2"), **log.env)
     out["procs_merge_2"] = log.launches()
@@ -1219,23 +1567,25 @@ def phase_procs(work, r1, r2, p1, p2):
                     os.path.join(d, "merge_n2"), 2,
                     ("merged.fq", "out1.fq", "out2.fq"),
                     "--merge --dedup --local_processes 2 vs one process")
-    print("phase procs: 1M pairs, main path, --local_processes N on one card, "
+    print("phase procs: %d pairs, main path, --local_processes N on one card, "
           "wall seconds of the launcher: N=1 (one process of its own) %.3f s "
           "= %.0f pairs/s, N=2 %.3f s = %.0f pairs/s, N=4 %.3f s = %.0f "
           "pairs/s (of which the job's own \"time used\": %d, %d, %d s); N=2 "
           "with FASTP_TPU_SERVERS naming two warm servers on the one card "
           "%.3f s = %.0f pairs/s, %d launches, every file and the JSON equal "
           "to the plain N=2 run's; overlap kernel launches %d "
-          "and %d; the shards' files in order equal phase main's, the "
-          "merged JSON too but for the numbers in read1/read2_adapter_"
-          "counts, whose maps cap per shard (their sums, one process and N "
-          "shards: %s); --merge --dedup (cfg5 flags less "
-          "--overrepresentation_analysis) on %d pairs: one process %.3f s, "
+          "and %d; the shards' files in order equal one process's, the "
+          "merged JSON too but for read1/read2_adapter_counts, whose "
+          "maps cap per shard: those equal the maps of each shard's records "
+          "run alone in this process, added up (the sums of their numbers, "
+          "one process and N shards: %s); --merge --dedup (cfg5 flags less "
+          "--overrepresentation_analysis) on %d pairs: in this process %.3f s, "
           "--local_processes 2 %.3f s, merged.fq, out1.fq, out2.fq and JSON "
           "equal (%d launches)"
-          % (walls[1], MAIN_PAIRS / walls[1], walls[2], MAIN_PAIRS / walls[2],
-             walls[4], MAIN_PAIRS / walls[4], used[1], used[2], used[4],
-             served_wall, MAIN_PAIRS / served_wall, out["procs_2_servers"],
+          % (MID_PAIRS, walls[1], MID_PAIRS / walls[1], walls[2],
+             MID_PAIRS / walls[2], walls[4], MID_PAIRS / walls[4], used[1],
+             used[2], used[4], served_wall, MID_PAIRS / served_wall,
+             out["procs_2_servers"],
              out["procs_2"], out["procs_4"],
              "; ".join("N=%d %d, %d" % (n, *o) for n, o in others.items()),
              CPU_PAIRS, single_wall, merge_wall, out["procs_merge_2"]), flush=True)
@@ -1299,31 +1649,104 @@ def _shards_in_servers(d, big, log):
             err_fh.close()
 
 
-def accum_turns(work, rounds):
-    """The 1M-pair main path per batch, accumulating, accumulating, per
-    batch, `rounds` times over: the walls of the runs, in that order."""
+def env_turns(work, setting, rounds):
+    """The 1M-pair main path as it is, with `setting` (VAR=VALUE) in the
+    environment, with it, as it is, `rounds` times over: the walls, the
+    dispatch worker's seconds, the transfers from the card and the input
+    schemes of the runs, in that order, and what separates the medians."""
+    var, _, value = setting.partition("=")
+    check(var and value, "--turns takes VAR=VALUE, not %r" % setting)
     r1, r2 = _make_corpus(work)
     args = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
-    walls = []
-    for k, env in enumerate(({"FASTP_TPU_NO_ACCUM": "1"}, {}, {},
-                             {"FASTP_TPU_NO_ACCUM": "1"}) * rounds):
+    runs = []
+    for k, env in enumerate(({}, {var: value}, {var: value}, {}) * rounds):
+        name = "turn%d" % k
         before = step_device.fetch_stats["fetches"]
-        res, d, wall, launches = _drive(work, "turn%d" % k, args, **env)
+        res, d, wall, launches = _drive(work, name, args,
+                                        **dict(TIMING_ON, **env))
         fetches = step_device.fetch_stats["fetches"] - before
-        check(launches == res["batches"] == MAIN_BATCHES
-              and fetches == MAIN_BATCHES + (0 if env else 1),
-              "turn %d: %d batches, %d launches, %d transfers"
-              % (k, res["batches"], launches, fetches))
+        mode = setting if env else "default"
+        check(launches == res["batches"] == MAIN_BATCHES,
+              "turn %d (%s): %d batches, %d launches"
+              % (k, mode, res["batches"], launches))
         if k:
             same_outputs(d, os.path.join(work, "turn0"), "turn %d vs turn 0" % k)
             shutil.rmtree(d)
-        walls.append(("per batch" if env else "accumulating", wall))
-    medians = {mode: float(np.median([w for m, w in walls if m == mode]))
-               for mode in ("per batch", "accumulating")}
-    print("accum turns: %d pairs, main path, wall seconds in turns: %s; "
-          "medians: %s; outputs equal"
-          % (MAIN_PAIRS, ", ".join("%s %.3f" % w for w in walls),
-             ", ".join("%s %.3f" % kv for kv in medians.items())), flush=True)
+        dispatch = float(re.search(r"dispatch=([0-9.]+)s",
+                                   TIMING_LINES[name][1]).group(1))
+        runs.append((mode, wall, dispatch, fetches,
+                     json.dumps(res["input_kinds"])))
+    report = {}
+    for mode in ("default", setting):
+        walls = [r[1] for r in runs if r[0] == mode]
+        report[mode] = {"median_wall": float(np.median(walls)),
+                        "spread": max(walls) - min(walls),
+                        "median_dispatch": float(np.median(
+                            [r[2] for r in runs if r[0] == mode]))}
+    print("turns: %d pairs, main path, wall seconds (the dispatch worker's; "
+          "transfers from the card; batches per input scheme) in turns: %s; "
+          "%s; outputs equal"
+          % (MAIN_PAIRS, ", ".join("%s %.3f (%.2f; %d; %s)" % r for r in runs),
+             json.dumps(report)), flush=True)
+
+
+def against_parent(work, parent_root):
+    """The four 1M-pair paths as processes of their own from an earlier
+    checkout of this repository (`parent_root`: a directory that holds its
+    fastp_tpu_torch package) and from this one, in turns earlier, this,
+    this, earlier; each run's files and JSON must equal the first's.  Both
+    trees build their kernel and host library in a short untimed job first.
+    Prints the walls (start-up included on both sides)."""
+    r1, r2 = _make_corpus(work)
+    pe = ["-i", r1, "-I", r2]
+    paths = {
+        "main": pe + ["-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS],
+        "se": ["-i", r1, "-o", "out.fq"],
+        "failed": pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS],
+        "merge": pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS],
+    }
+    roots = {"earlier": os.path.abspath(parent_root), "this": ROOT}
+
+    def job(root, args, d):
+        os.makedirs(d)
+        env = port_env(FASTP_TPU_TIMING="1")
+        env["PYTHONPATH"] = root
+        t0 = time.perf_counter()
+        res = subprocess.run(port_cmd(*args), cwd=d, env=env,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0 and "running on cuda" in res.stderr,
+              "%s from %s failed:\n%s" % (args, root, res.stderr[-3000:]))
+        return wall, [ln for ln in res.stderr.splitlines()
+                      if ln.startswith("TIMING ")]
+
+    for which, root in roots.items():
+        job(root, GOLDEN_RUNS["cfg3_pe_correction"],
+            os.path.join(work, "warm_" + which))
+    report = {}
+    for name, args in paths.items():
+        walls = []
+        for k, which in enumerate(("earlier", "this", "this", "earlier")):
+            d = os.path.join(work, "%s_%d_%s" % (name, k, which))
+            wall, timing = job(roots[which], args, d)
+            walls.append((which, wall))
+            if k:
+                same_outputs(d, os.path.join(work, name + "_0_earlier"),
+                             "%s, turn %d (%s) vs turn 0" % (name, k, which))
+                shutil.rmtree(d)
+            if k == 1:
+                for line in timing:
+                    print("timing %s (this tree): %s" % (name, line),
+                          flush=True)
+        shutil.rmtree(os.path.join(work, name + "_0_earlier"))
+        report[name] = {
+            "walls_in_turns": walls,
+            "median": {w: float(np.median([x for y, x in walls if y == w]))
+                       for w in roots}}
+    print("against %s: %d pairs, a process of its own per run, wall seconds "
+          "(start-up included), outputs equal: %s"
+          % (parent_root, MAIN_PAIRS, json.dumps(report)), flush=True)
 
 
 def _free_port():
@@ -1334,13 +1757,13 @@ def _free_port():
     return port
 
 
-def phase_dist(work, r1, r2):
+def phase_dist(work, m1, m2):
     """Two ranks of one job over torch.distributed, both on the one card.
     Returns (overlap kernel launches, wall seconds)."""
     d = os.path.join(work, "dist")
     os.makedirs(d)
     log = LaunchLog(work, "dist")
-    big = ["-i", r1, "-I", r2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    big = ["-i", m1, "-I", m2, "-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
     port = _free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -1368,28 +1791,45 @@ def phase_dist(work, r1, r2):
           and all(job["overlap_sweep"] > 0 for job in jobs),
           "the two ranks logged %s" % jobs)
     launches = log.launches()
-    check(launches >= MAIN_BATCHES, "the ranks launched the overlap kernel %d "
-          "times for %d batches" % (launches, MAIN_BATCHES))
-    taken = _same_as_shards(os.path.join(work, "main"), d, 2,
+    check(launches >= MID_BATCHES, "the ranks launched the overlap kernel %d "
+          "times for %d batches" % (launches, MID_BATCHES))
+    taken = _same_as_shards(os.path.join(work, "main_mid"), d, 2,
                             ("out1.fq", "out2.fq"),
-                            "two ranks over torch.distributed vs phase main",
-                            capped=True)
+                            "two ranks over torch.distributed vs one process",
+                            adapters=_sharded_adapter_counts(work, m1, m2, 2))
     print("phase dist: %d pairs, main path, two ranks (gloo on 127.0.0.1, no "
           "FASTP_TPU_FS_EXCHANGE), both on the one card, in %.3f s wall from "
           "start to the second rank's end = %.0f pairs/s; %d overlap kernel "
-          "launches (%s); the ranks' files in order equal phase main's, the "
-          "merged JSON too but for the numbers in read1/read2_adapter_counts "
-          "(their sums, one process and two ranks: %d, %d)"
-          % (MAIN_PAIRS, wall, MAIN_PAIRS / wall, launches,
+          "launches (%s); the ranks' files in order equal one process's, the "
+          "merged JSON too but for read1/read2_adapter_counts, which equal "
+          "the maps of each rank's records run alone in this process, added "
+          "up (the sums of their numbers, one process and two ranks: %d, %d)"
+          % (MID_PAIRS, wall, MID_PAIRS / wall, launches,
              " + ".join(str(job["overlap_sweep"]) for job in jobs), *taken),
           flush=True)
     return launches, wall
 
 
-def phase_selftest(work):
+def phase_selftest(work, meanwhile):
+    """`python -m fastp_tpu_torch test` on the card; `meanwhile()` (a phase
+    that needs no card) runs while the self-test's process does."""
     log = LaunchLog(work, "selftest")
-    stdout, _, wall = _port_job(["test"], os.path.join(work, "selftest"),
-                                **log.env)
+    d = os.path.join(work, "selftest")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(port_cmd("test"), cwd=d, env=port_env(**log.env),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        meanwhile()
+        stdout, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "the self-test exited %d:\n%s"
+          % (proc.returncode, err[-3000:]))
     lines = [ln for ln in stdout.splitlines() if ": " in ln]
     passed = [ln for ln in lines if ln.endswith(": PASSED")]
     check(len(passed) == len(lines) >= 10 and "ALL PASSED" in stdout,
@@ -1399,8 +1839,9 @@ def phase_selftest(work):
           "(OverlapAnalysis::analyze and BaseCorrector analyse one pair row "
           "each)" % launches)
     print("phase selftest: `python -m fastp_tpu_torch test` on the card in "
-          "%.3f s: %d checks PASSED, ALL PASSED; %d overlap kernel launches "
-          "at B=1" % (wall, len(passed), launches), flush=True)
+          "%.3f s (phase no_card ran meanwhile): %d checks PASSED, ALL "
+          "PASSED; %d overlap kernel launches at B=1"
+          % (wall, len(passed), launches), flush=True)
     return launches
 
 
@@ -1440,7 +1881,7 @@ def phase_batch(work, r1, r2):
         args = batch.build_args(job, os.path.join(d, "direct_out"),
                                 os.path.join(d, "direct_rep"), extra)
         os.makedirs(os.path.join(d, "direct_rep"), exist_ok=True)
-        _port_job(args, d)
+        _run_in_process(["fastp_tpu_torch", *args], d)
         for flag in ("-o", "-O", "--json"):
             if flag not in args:
                 continue
@@ -1502,6 +1943,40 @@ def phase_no_card(work, p1, p2):
           flush=True)
 
 
+def _mid_reference(work, m1, m2):
+    """The first MID_PAIRS of the corpus through the main path in this
+    process: what phases serve, procs and dist hold their runs to.  Returns
+    its overlap kernel launches."""
+    res, d, wall, launches = _drive(
+        work, "main_mid", ["-i", m1, "-I", m2, "-o", "out1.fq", "-O",
+                           "out2.fq", *BENCH_FLAGS])
+    check(launches == res["batches"] == MID_BATCHES,
+          "the %d-pair run: %d overlap kernel launches for %d batches"
+          % (MID_PAIRS, launches, res["batches"]))
+    _nonempty_outputs(d, "the %d-pair run" % MID_PAIRS)
+    print("reference for phases serve, procs and dist: the first %d pairs, "
+          "main path, in this process in %.3f s wall; %d batches, %d overlap "
+          "kernel launches" % (MID_PAIRS, wall, res["batches"], launches),
+          flush=True)
+    return launches
+
+
+# phase -> the seconds it took in this run
+PHASE_SECONDS = {}
+SCRIPT_T0 = time.perf_counter()
+
+
+def _timed(name, phase, *args):
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 3)
+        print("seconds: %s %.1f, the script so far %.1f"
+              % (name, PHASE_SECONDS[name], time.perf_counter() - SCRIPT_T0),
+              flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel-only", action="store_true",
@@ -1509,57 +1984,90 @@ def main(argv=None):
     parser.add_argument("--old-kernel", metavar="OLD.cu",
                         help="an earlier version of csrc/overlap_sweep.cu to "
                              "check and time beside the current one")
-    parser.add_argument("--accum-turns", type=int, default=0, metavar="ROUNDS",
+    parser.add_argument("--turns", nargs=2, metavar=("VAR=VALUE", "ROUNDS"),
                         help="phases device and build, then the 1M-pair main "
-                             "path with and without FASTP_TPU_NO_ACCUM=1, in "
-                             "turns, four runs a round")
+                             "path without and with VAR=VALUE in the "
+                             "environment, in turns, four runs a round")
+    parser.add_argument("--against", metavar="CHECKOUT",
+                        help="phases device and build, then the four 1M-pair "
+                             "paths from an earlier checkout of the repository "
+                             "and from this one, in turns, a process each")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
-    if args.accum_turns:
+    if args.against:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
-            accum_turns(work, args.accum_turns)
+            against_parent(work, args.against)
         print(card)
-        print("accum-turns run: no other phase was driven")
+        print("--against run: no other phase was driven")
         return 0
-    worst, timing, bounds = phase_kernel(args.old_kernel)
-    launches = {}
-    if not args.kernel_only:
+    if args.turns:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
-            phase_golden(work)
-            r1, r2 = _make_corpus(work)
-            main_launches, main_wall = phase_main(work, r1, r2)
+            env_turns(work, args.turns[0], int(args.turns[1]))
+        print(card)
+        print("turns run: no other phase was driven")
+        return 0
+    launches = {}
+    if args.kernel_only:
+        worst, timing, bounds = phase_kernel(args.old_kernel)
+    else:
+        os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
+            # the corpus is written by a process of its own meanwhile
+            corpus = _start_corpus(work)
+            try:
+                worst, timing, bounds = _timed("kernel", phase_kernel,
+                                               args.old_kernel)
+                _timed("golden", phase_golden, work)
+                r1, r2 = _timed("corpus_wait", _finish_corpus, corpus)
+            finally:
+                if corpus[0].poll() is None:
+                    corpus[0].kill()
+                    corpus[0].communicate()
+            main_launches, main_wall = _timed("main", phase_main, work, r1, r2)
             launches = {"main": main_launches,
-                        "se": phase_se(work, r1),
-                        "failed": phase_failed(work, r1, r2),
-                        "merge": phase_merge(work, r1, r2)}
-            short_runs = phase_cpu(work, r1, r2)
+                        "se": _timed("se", phase_se, work, r1),
+                        "failed": _timed("failed", phase_failed, work, r1, r2),
+                        "merge": _timed("merge", phase_merge, work, r1, r2)}
+            short_runs = _timed("cpu", phase_cpu, work, r1, r2)
             launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
-            split = phase_devices(work, r1, r2, main_wall)
-            moved = phase_accum(work, r1, r2)
+            split = _timed("devices", phase_devices, work, r1, r2, main_wall)
+            moved = _timed("accum", phase_accum, work, r1, r2)
+            piped, pipe_numbers = _timed("pipeline", phase_pipeline, work,
+                                         r1, r2)
             p1 = _prefix(r1, os.path.join(work, "P1.fq"), CPU_PAIRS)
             p2 = _prefix(r2, os.path.join(work, "P2.fq"), CPU_PAIRS)
-            served = phase_serve(work, r1, r2, p1, p2)
-            shards = phase_procs(work, r1, r2, p1, p2)
-            launches["dist_2_ranks"], dist_wall = phase_dist(work, r1, r2)
+            m1 = _prefix(r1, os.path.join(work, "M1.fq"), MID_PAIRS)
+            m2 = _prefix(r2, os.path.join(work, "M2.fq"), MID_PAIRS)
+            launches["main_%d_pairs" % MID_PAIRS] = _timed(
+                "mid_reference", _mid_reference, work, m1, m2)
+            served = _timed("serve", phase_serve, work, m1, m2, p1, p2)
+            shards = _timed("procs", phase_procs, work, m1, m2, p1, p2)
+            launches["dist_2_ranks"], dist_wall = _timed(
+                "dist", phase_dist, work, m1, m2)
             walls = {"serve": served.pop("walls"),
                      "procs": shards.pop("walls"),
                      "devices": split.pop("walls"), "dist_2_ranks": dist_wall,
-                     "d2h_bytes_%d_pairs" % CPU_PAIRS: moved}
+                     "d2h_bytes_%d_pairs" % CPU_PAIRS: moved,
+                     "pipeline": pipe_numbers}
             launches.update(split)
+            launches.update(piped)
             launches.update(served)
             launches.update(shards)
-            launches["selftest"] = phase_selftest(work)
-            launches["batch"] = phase_batch(work, r1, r2)
-            phase_no_card(work, p1, p2)
+            launches["batch"] = _timed("batch", phase_batch, work, r1, r2)
+            launches["selftest"] = _timed(
+                "selftest_and_no_card", phase_selftest, work,
+                lambda: phase_no_card(work, p1, p2))
         shutil.rmtree(os.path.join(ROOT, "_smoke"), ignore_errors=True)
     main_pct, zero_pct = (setting[2] for setting in TIMED_SETTINGS)
     t, t0 = timing[main_pct], timing[zero_pct]
     bound, bound0 = bounds[main_pct], bounds[zero_pct]
     if not args.kernel_only:
         print(json.dumps({"wall_seconds": walls}))
+        print(json.dumps({"phase_seconds": PHASE_SECONDS,
+                          "script_seconds": time.perf_counter() - SCRIPT_T0}))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",

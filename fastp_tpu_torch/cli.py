@@ -16,6 +16,7 @@ devices on stderr.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -606,6 +607,53 @@ def _log_launches(argv, before: int):
             fh.write(line + "\n")
 
 
+# the window of batches that FASTP_TPU_PROFILE traces: a whole run of a
+# million pairs is several hundred thousand kernel events, more than a
+# trace viewer opens
+PROFILE_SKIP_BATCHES = 1
+PROFILE_BATCHES = 6
+
+
+@contextlib.contextmanager
+def _trace_window(processor):
+    """With FASTP_TPU_PROFILE=<dir>, a torch.profiler trace (the card's
+    kernels and copies, whichever thread queued them, and the calling
+    thread's host calls; the workers' host calls are not in it:
+    FASTP_TPU_TIMING=1 has their wall split) of PROFILE_BATCHES batches
+    after the first PROFILE_SKIP_BATCHES, written to the directory as a
+    Chrome trace when the window closes or the run ends; the processor's
+    on_batch hook steps the window.  A run that ends inside the window
+    leaves what it had; one of PROFILE_SKIP_BATCHES batches or fewer leaves
+    no trace."""
+    prof_dir = os.environ.get("FASTP_TPU_PROFILE")
+    if not prof_dir:
+        yield
+        return
+    from torch import profiler
+    os.makedirs(prof_dir, exist_ok=True)
+    sys.stderr.write("Writing a torch.profiler trace of batches %d-%d to %s\n"
+                     % (PROFILE_SKIP_BATCHES + 1,
+                        PROFILE_SKIP_BATCHES + PROFILE_BATCHES, prof_dir))
+    written = []
+
+    def write(prof):
+        path = os.path.join(prof_dir, "fastp_tpu_torch.%d.%d.trace.json"
+                            % (os.getpid(), len(written)))
+        prof.export_chrome_trace(path)
+        written.append(path)
+
+    acts = [profiler.ProfilerActivity.CPU]
+    if any(d.type == "cuda" for d in processor.devices):
+        acts.append(profiler.ProfilerActivity.CUDA)
+    prof = profiler.profile(
+        activities=acts, on_trace_ready=write,
+        schedule=profiler.schedule(wait=PROFILE_SKIP_BATCHES - 1, warmup=1,
+                                   active=PROFILE_BATCHES, repeat=1))
+    processor.on_batch = prof.step
+    with prof:
+        yield
+
+
 def run(argv, device=None) -> dict:
     """Run one job on `device` (see resolve_devices); returns the
     processor's result dict (stats, filter result, and the number of
@@ -634,8 +682,10 @@ def run(argv, device=None) -> dict:
     sys.stderr.write("fastp_tpu_torch: running on %s\n"
                      % describe_devices(devices))
     launches = _kernel_launches()
-    processor = PairEndProcessor if opt.isPaired() else SingleEndProcessor
-    res = processor(opt, devices).process()
+    processor = (PairEndProcessor if opt.isPaired()
+                 else SingleEndProcessor)(opt, devices)
+    with _trace_window(processor):
+        res = processor.process()
     _log_launches(argv, launches)
     sys.stderr.write("\nJSON report: %s\n" % opt.jsonFile)
     sys.stderr.write("HTML report: %s\n" % opt.htmlFile)

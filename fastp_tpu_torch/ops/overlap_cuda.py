@@ -18,11 +18,14 @@ note has the argument, the details and the measured times).
 
 `sweep_select` runs the kernel for CUDA tensors and the plain PyTorch
 version (ops/overlap.py:sweep_select_plain) only for CPU tensors.  It
-counts its kernel launches in `sweep_select.launches`.
+launches on the calling thread's current stream (the batch loop's dispatch
+worker enters the run's side stream) and counts its kernel launches in
+`sweep_select.launches`.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -33,15 +36,23 @@ MAX_ROWS_PER_BLOCK = 8     # one warp per pair row
 _fn = None
 
 
+_lock = threading.Lock()
+
+
 def _kernel():
+    """The library's launcher, built and loaded at the first launch.  The
+    first launch of a run comes from its dispatch worker, and the shards of
+    two jobs may get here together: one of them builds, the others wait."""
     global _fn
-    if _fn is None:
-        from ..cuda_build import load
-        fn = load("overlap_sweep").overlap_sweep
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p, p, p, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+    with _lock:
+        if _fn is None:
+            from ..cuda_build import load
+            fn = load("overlap_sweep").overlap_sweep
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p, p, p,
+                           i, p]
+            fn.restype = ctypes.c_int
+            _fn = fn
     return _fn
 
 
@@ -112,7 +123,8 @@ def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
                  overlap_len.data_ptr(), diff.data_ptr(), warps, stream)
     if err != 0:
         raise RuntimeError("overlap_sweep launch failed: CUDA error %d" % err)
-    sweep_select.launches += 1
+    with _lock:   # launches come from worker threads
+        sweep_select.launches += 1
     return found, offset, overlap_len, diff
 
 

@@ -18,6 +18,7 @@ hosts (parallel/multihost.py) over torch.distributed.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -177,14 +178,31 @@ def join_outputs(outs: list, rows: int) -> dict:
     return res
 
 
+class ShardedPending:
+    """The pending fetches of a split batch's shards; wait() joins them."""
+
+    def __init__(self, pendings: list, rows: int):
+        self.pendings = pendings
+        self.rows = rows
+
+    def wait(self) -> dict:
+        return join_outputs([p.wait() for p in self.pendings], self.rows)
+
+
 class ShardedStep:
     """The step of a split: `run` cuts the batch and queues every shard's
-    upload and device work, `fetch` copies the shards' outputs to the host
-    and joins them.  Same two halves as pipeline/device.py:Step."""
+    upload and device work (each on the side stream of its device),
+    `start_fetch` packs every shard's outputs and queues their copies to the
+    host, and the pending fetch's wait() joins them.  Same parts as
+    pipeline/device.py:Step."""
 
     def __init__(self, steps: list, n_args: int):
         self.steps = steps          # one per shard; shards on one device share it
         self.n_args = n_args        # batch-major arguments, then nvalid
+
+    def on_stream(self):
+        """Every shard enters its own device's stream itself."""
+        return contextlib.nullcontext()
 
     def run(self, *args):
         n = len(self.steps)
@@ -203,10 +221,13 @@ class ShardedStep:
             outs.append(step.run(*part))
         return outs, rows
 
-    def fetch(self, run_result) -> dict:
+    def start_fetch(self, run_result) -> ShardedPending:
         outs, rows = run_result
-        return join_outputs([step.fetch(o)
-                             for step, o in zip(self.steps, outs)], rows)
+        return ShardedPending([step.start_fetch(o)
+                               for step, o in zip(self.steps, outs)], rows)
+
+    def fetch(self, run_result) -> dict:
+        return self.start_fetch(run_result).wait()
 
     def __call__(self, *args):
         return self.fetch(self.run(*args))

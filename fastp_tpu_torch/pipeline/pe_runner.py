@@ -2,15 +2,21 @@
 
 Counterpart of fastp_tpu/pipeline/pe_runner.py, lean or not: two input
 files or one interleaved stream, merging, unpaired/failed/overlapped/split
-outputs and interleaved or merged stdout.  The batch loop is synchronous:
-read -> host pre-ops -> torch step (on one device or split over several;
-per-read outputs copied to numpy, the batch's sums kept on the device until
-the end of the run) -> routing -> writers.  Routing is route_pe (pipeline/pe_route.py) where the native
-library loaded, else the per-row loop below, as in fastp_tpu.
+outputs and interleaved or merged stdout.  The batch loop is the pipeline
+of pipeline/runner.py:_run_batches: produce() (read -> host pre-ops -> pad
+-> submit) runs ahead on the prep worker, _dispatch_pe packs the inputs and
+queues the torch step (on one device or split over several) on the
+dispatch worker, the fetch workers unpack the per-read outputs (the batch's
+sums stay on the device until the end of the run), and the calling thread
+counts, routes and writes the batches in input order.  Routing is route_pe
+(pipeline/pe_route.py) where the native library loaded, else the per-row
+loop below, as in fastp_tpu.
 """
 from __future__ import annotations
 
 import sys
+import time
+from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
@@ -118,13 +124,12 @@ class PairEndProcessor(BaseProcessor):
         self.overrep_pre2 = _OverRepCounter(self.pre_stats2, opt)
         self.overrep_post1 = _OverRepCounter(self.post_stats1, opt)
         self.overrep_post2 = _OverRepCounter(self.post_stats2, opt)
-        self.batches = 0
         # batches whose corrections overflowed their slots (the step's
         # sparse list, or a row's K of a split step) and were recomputed on
         # the host; returned with the result
         self.corr_overflow_batches = 0
 
-    def process(self) -> Dict:
+    def _process_inner(self) -> Dict:
         opt = self.opt
         if opt.interleavedInput:
             source = _InterleavedPairSource(open_batch_reader(
@@ -160,62 +165,127 @@ class PairEndProcessor(BaseProcessor):
                                                  to_stdout=True)
         to_stdout = (("merged" if opt.merge.enabled else "single")
                      if opt.outputToSTDOUT else None)
-        pairs_seen = 0
-        last_reported = 0
-        try:
-            while True:
-                n = opt.batchSize
-                if opt.readsToProcess > 0:
-                    n = min(n, opt.readsToProcess - pairs_seen)
-                    if n <= 0:
-                        break
-                batch1, batch2 = source.read_pair_batch(n, self.width)
-                if batch1 is None or batch2 is None:
-                    break
-                parts, read_passed, B = self._process_batch(batch1, batch2,
-                                                            pairs_seen)
-                if split is not None:
-                    split.write1(parts.get("out1", b""),
-                                 read_passed if opt.split.byFileLines else B,
-                                 parts.get("out2", b""))
+        self._last_reported = 0
+        state = SimpleNamespace(eof=False, read=0)
+
+        def produce(timer):
+            """Read one batch of pairs, run the host pre-ops and submit it;
+            called ahead of the loop, on the prep worker, for batch k+1
+            before batch k's outputs are fetched.  The item carries the
+            batch's starting pair index and its width: this function runs
+            ahead of whoever consumes the item."""
+            if state.eof:
+                return None
+            n = opt.batchSize
+            if opt.readsToProcess > 0:
+                n = min(n, opt.readsToProcess - state.read)
+                if n <= 0:
+                    state.eof = True
+                    return None
+            t0 = time.monotonic()
+            batch1, batch2 = source.read_pair_batch(n, self.width)
+            timer.add("read", t0)
+            if batch1 is None or batch2 is None:
+                state.eof = True
+                return None
+            if batch1.n != batch2.n:
+                sys.stderr.write("\nWARNNIG: different read numbers of the input files\n"
+                                 "Read1 count: %d\nRead2 count: %d\n"
+                                 "Ignore the unmatched reads\n\n" % (batch1.n, batch2.n))
+                m = min(batch1.n, batch2.n)
+                batch1 = batch1.head(m)
+                batch2 = batch2.head(m)
+            B = batch1.n
+            if batch1.width != batch2.width:
+                w = max(batch1.width, batch2.width)
+                batch1 = batch1.widen(w)
+                batch2 = batch2.widen(w)
+            self.width = batch1.width
+
+            index_drop = self._index_drop_mask_batches(batch1, batch2)
+            if opt.fixMGI:
+                batch1.set_names([fix_mgi(nm)[0] for nm in batch1.names])
+                batch2.set_names([fix_mgi(nm)[0] for nm in batch2.names])
+            if opt.umi.enabled:
+                res = self.umi.process_batch_arrays(batch1, batch2)
+                if res is not None:
+                    pre_trim1, pre_trim2 = res
                 else:
-                    if to_stdout:
-                        writers["stdout"].write(parts.get(to_stdout, b""))
-                    for key in _STREAMS:
-                        if (key in writers and key != to_stdout
-                                and parts.get(key)):
-                            writers[key].write(parts[key])
-                pairs_seen += B
-                self.batches += 1
-                if opt.verbose and pairs_seen >= last_reported + 1000000:
-                    last_reported = pairs_seen
-                    for read in ("Read1", "Read2"):
-                        loginfo("%s: loaded %dM reads"
-                                % (read, pairs_seen // 1000000))
-        except BaseException:
-            self._abandon([source, *writers.values()]
-                          + ([split] if split is not None else []))
-            raise
+                    names1u, names2u, pre_trim1, pre_trim2 = self.umi.process_batch(
+                        batch1.names, _SeqView(batch1), batch2.names, _SeqView(batch2))
+                    batch1.set_names(names1u)
+                    batch2.set_names(names2u)
+                    pre_trim1 = np.asarray(pre_trim1, np.int32)
+                    pre_trim2 = np.asarray(pre_trim2, np.int32)
+            else:
+                pre_trim1 = np.zeros(B, np.int32)
+                pre_trim2 = np.zeros(B, np.int32)
+
+            b1, q1, l1 = batch1.bases, batch1.quals, batch1.lengths
+            b2, q2, l2 = batch2.bases, batch2.quals, batch2.lengths
+            dedup_out = np.zeros(B, bool)
+            if self.duplicate is not None:
+                t0 = time.monotonic()
+                dup = self.duplicate.check_batch_pe(b1, l1, b2, l2)
+                timer.add("dup", t0)
+                if opt.duplicate.dedup:
+                    dedup_out = dup
+
+            t0 = time.monotonic()
+            padded, valid = self._pad_batch(
+                [b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2, index_drop,
+                 dedup_out], B, target=opt.batchSize)
+            t0 = timer.add("pad", t0)
+            pending = self._submit_batch(self._dispatch_pe, *padded, valid)
+            timer.add("submit", t0)
+            item = SimpleNamespace(
+                pending=pending, out=None, batch1=batch1, batch2=batch2, B=B,
+                start=state.read, index_drop=index_drop, pre_trim1=pre_trim1,
+                pre_trim2=pre_trim2, dedup_out=dedup_out)
+            state.read += B
+            return item
+
+        def flush(item, routed):
+            parts, read_passed = routed
+            if split is not None:
+                split.write1(parts.get("out1", b""),
+                             read_passed if opt.split.byFileLines else item.B,
+                             parts.get("out2", b""))
+                return
+            if to_stdout:
+                writers["stdout"].write(parts.get(to_stdout, b""))
+            for key in _STREAMS:
+                if key in writers and key != to_stdout and parts.get(key):
+                    writers[key].write(parts[key])
+
+        open_things = [source, *writers.values()] + (
+            [split] if split is not None else [])
+        pairs_seen = self._run_batches(produce, flush, open_things, "pairs")
         if opt.verbose:
             loginfo("batch loop done (%d pairs)" % pairs_seen)
-        source.close()
-        for wtr in writers.values():
-            wtr.close()
-        if split is not None:
-            split.close()
-        # accumulate mode: the run's sums arrive now (one fetch per chain
-        # instead of one per batch); merging accumulates only on the routed
-        # path, whose post_um* dicts the host adds
-        for vals in self._fold_accs():
-            self._add_sums(vals, routed=True)
+        for thing in open_things:
+            thing.close()
         return self._finish()
 
-    def _add_sums(self, vals, routed: bool):
+    def _log_progress(self, seen: int):
+        if self.opt.verbose and seen >= self._last_reported + 1000000:
+            self._last_reported = seen
+            for read in ("Read1", "Read2"):
+                loginfo("%s: loaded %dM reads" % (read, seen // 1000000))
+
+    def _dispatch_pe(self, b1p, q1p, l1p, b2p, q2p, l2p, pt1p, pt2p,
+                     idxp, dedp, valid):
+        """Pack, upload and queue the step for one padded batch of pairs
+        (on the dispatch worker).  Returns the pending fetch."""
+        aux = make_aux(self.cfg, valid, pt1p, pt2p, idxp, dedp)
+        return self._dispatch_mates([(b1p, q1p), (b2p, q2p)], [l1p, l2p], aux)
+
+    def _add_sums(self, vals, routed: bool = True):
         """Add a dict of batch-reduced sums to the host's stats: a batch's
-        output dict, or in accumulate mode the run's, at its end.
-        `routed`: the native routing emits the unmerged survivors, so their
-        post stats come from the device (the per-row loop counts them
-        itself, read by read)."""
+        output dict, or in accumulate mode the run's, at its end (merging
+        accumulates only on the routed path).  `routed`: the native routing
+        emits the unmerged survivors, so their post stats come from the
+        device (the per-row loop counts them itself, read by read)."""
         opt = self.opt
         self.pre_stats1.add_batch(vals["pre1"])
         self.pre_stats2.add_batch(vals["pre2"])
@@ -238,58 +308,16 @@ class PairEndProcessor(BaseProcessor):
             self.filter_result.filter_read_stats += \
                 vals["result_hist"].astype(np.int64)
 
-    def _process_batch(self, batch1: ArrayBatch, batch2: ArrayBatch,
-                       pairs_seen: int):
-        """Run one batch through the host pre-ops, the step and the routing;
-        returns ({stream: FASTQ bytes}, pairs passed, pairs in the batch)."""
+    def _process_batch(self, item):
+        """The consuming half of one batch, in input order on the calling
+        thread: counting, adapter recording, overrepresentation sampling and
+        routing of the fetched outputs (item.out).  Returns
+        ({stream: FASTQ bytes}, pairs passed)."""
         opt = self.opt
-        if batch1.n != batch2.n:
-            sys.stderr.write("\nWARNNIG: different read numbers of the input files\n"
-                             "Read1 count: %d\nRead2 count: %d\n"
-                             "Ignore the unmatched reads\n\n" % (batch1.n, batch2.n))
-            m = min(batch1.n, batch2.n)
-            batch1 = batch1.head(m)
-            batch2 = batch2.head(m)
-        B = batch1.n
-        if batch1.width != batch2.width:
-            w = max(batch1.width, batch2.width)
-            batch1 = batch1.widen(w)
-            batch2 = batch2.widen(w)
-        self.width = batch1.width
-
-        index_drop = self._index_drop_mask_batches(batch1, batch2)
-        if opt.fixMGI:
-            batch1.set_names([fix_mgi(nm)[0] for nm in batch1.names])
-            batch2.set_names([fix_mgi(nm)[0] for nm in batch2.names])
-        if opt.umi.enabled:
-            res = self.umi.process_batch_arrays(batch1, batch2)
-            if res is not None:
-                pre_trim1, pre_trim2 = res
-            else:
-                names1u, names2u, pre_trim1, pre_trim2 = self.umi.process_batch(
-                    batch1.names, _SeqView(batch1), batch2.names, _SeqView(batch2))
-                batch1.set_names(names1u)
-                batch2.set_names(names2u)
-                pre_trim1 = np.asarray(pre_trim1, np.int32)
-                pre_trim2 = np.asarray(pre_trim2, np.int32)
-        else:
-            pre_trim1 = np.zeros(B, np.int32)
-            pre_trim2 = np.zeros(B, np.int32)
-
-        b1, q1, l1 = batch1.bases, batch1.quals, batch1.lengths
-        b2, q2, l2 = batch2.bases, batch2.quals, batch2.lengths
-        dedup_out = np.zeros(B, bool)
-        if self.duplicate is not None:
-            dup = self.duplicate.check_batch_pe(b1, l1, b2, l2)
-            if opt.duplicate.dedup:
-                dedup_out = dup
-
-        (b1p, q1p, l1p, b2p, q2p, l2p, pt1p, pt2p, idxp, dedp), valid = \
-            self._pad_batch([b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2,
-                             index_drop, dedup_out], B, target=opt.batchSize)
-        out = self._call_step(
-            self.step, (b1p, q1p, l1p, b2p, q2p, l2p) + make_aux(
-                self.cfg, valid, pt1p, pt2p, idxp, dedp))
+        batch1, batch2, B, out = item.batch1, item.batch2, item.B, item.out
+        index_drop, dedup_out = item.index_drop, item.dedup_out
+        pre_trim1, pre_trim2 = item.pre_trim1, item.pre_trim2
+        pairs_seen = item.start
         # lean steps drop total_front when no front trim/cut can move the
         # window start on device: it is exactly the host-known pre-trim
         out.setdefault("total_front1", pre_trim1)
@@ -336,7 +364,7 @@ class PairEndProcessor(BaseProcessor):
                 pre_trim2, dedup_out)
         if opt.merge.enabled:
             self.filter_result.add_merged_pairs(merged_count)
-        return parts, read_passed, B
+        return parts, read_passed
 
     def _route_rows(self, out, view: PairWindowView, batch1: ArrayBatch,
                     batch2: ArrayBatch, B: int, index_drop, pre_trim1,
@@ -667,6 +695,7 @@ class PairEndProcessor(BaseProcessor):
                         "pre2": self.pre_stats2, "post2": self.post_stats2,
                         "filter": self.filter_result, "dup_rate": 0.0,
                         "insert_peak": 0, "batches": self.batches,
+                        "input_kinds": dict(self.input_kinds),
                         "corr_overflow_batches": self.corr_overflow_batches}
         sys.stderr.write("Read1 before filtering:\n")
         self._print_stats(self.pre_stats1)
@@ -718,6 +747,7 @@ class PairEndProcessor(BaseProcessor):
                 "pre2": self.pre_stats2, "post2": self.post_stats2,
                 "filter": self.filter_result, "dup_rate": dup_rate,
                 "insert_peak": peak, "batches": self.batches,
+                "input_kinds": dict(self.input_kinds),
                 "corr_overflow_batches": self.corr_overflow_batches}
 
     def _peak_insert_size(self) -> int:

@@ -5,16 +5,34 @@ the index blacklist match, grouped adapter-slice recording (one function
 for the SE and the PE processor), the overrepresented-sequence counter, a
 BaseProcessor that keeps the host state, batch padding, the index-drop
 masks and the stat printers, the single-end processor and the split-output
-writer set.  The JAX staging, fetch pools and input packers are not carried
-over: the batch loop is synchronous.  BaseProcessor also holds the devices
-of a split (parallel/mesh.py) and the run accumulator: the batch's sums stay
-on the device and come to the host once, at the end of the run.
+writer set.
+
+The batch loop is a pipeline of three stages (BaseProcessor._run_batches):
+a prep worker runs produce() -- read, host pre-ops, pad, submit -- up to
+FASTP_TPU_PREFETCH batches ahead; ONE dispatch worker packs the inputs
+(_dispatch, _dispatch_pe), queues the uploads and the step on the device's
+side stream and starts the fetch, in input order; fetch workers wait for
+each batch's event and unpack it; the calling thread takes the batches in
+order and counts, records, routes and writes them.  The native tokenizer,
+hashing, packers and serializer release the interpreter lock, as the waits
+for the device do, so those parts overlap; the Python between torch calls
+does not.  BaseProcessor also holds the devices of a split
+(parallel/mesh.py) and the run accumulator: the batch's sums stay on the
+device and come to the host once, at the end of the run.  Pools, streams,
+pinned buffers and the packers' learned dictionaries belong to the
+processor and end with the job.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
+import resource
 import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Dict, List
 
 import numpy as np
@@ -35,8 +53,8 @@ from ..utils.log import loginfo
 from ..utils.readname import first_index, fix_mgi, last_index
 from .static_cfg import device_cfg_from_options
 
-from .device import (ACC_KEYS, build_se_step, flat_leaves, flatten_int64,
-                     make_aux, unflatten_host)
+from .device import (ACC_KEYS, acc_delta, build_se_step, length_dtype,
+                     make_aux, unpack_acc)
 
 
 def _round_width(n: int) -> int:
@@ -260,6 +278,60 @@ class _OverRepCounter:
         self._dist[:] = 0
 
 
+_KIND_NAMES = {"p3": "p3", "nib": "nib", True: "bq"}
+
+
+def _warn_left_open(what: str, exc: Exception) -> None:
+    """One stderr line for something an abandoned run could not close."""
+    print("WARNING: abandoning the run: closing %s failed: %r" % (what, exc),
+          file=sys.stderr)
+
+
+class _LoopTimer:
+    """The batch loop's wall split.  With FASTP_TPU_TIMING=1 report() writes
+    it to stderr in fastp_tpu's words: the stages of the calling thread
+    (fetch_wait, route, flush), produce() on the prep worker with its parts
+    in brackets, the dispatch and fetch workers' times, and the process's
+    CPU time against the loop's wall time.  Every key is added to by one
+    thread only."""
+
+    def __init__(self):
+        self.on = bool(os.environ.get("FASTP_TPU_TIMING"))
+        self.t = dict.fromkeys(("produce", "fetch_wait", "route", "flush",
+                                "read", "dup", "pad", "submit"), 0.0)
+        self.ru0 = resource.getrusage(resource.RUSAGE_SELF)
+        self.wall0 = time.monotonic()
+
+    def add(self, key: str, t0: float) -> float:
+        now = time.monotonic()
+        self.t[key] += now - t0
+        return now
+
+    def report(self, unit: str, n: int, t_dispatch: float, t_get: float):
+        if not self.on:
+            return
+        t = self.t
+        sys.stderr.write(
+            "TIMING produce=%.2fs fetch_wait=%.2fs route=%.2fs "
+            "flush=%.2fs %s=%d "
+            "[read=%.2fs dup=%.2fs pad=%.2fs submit=%.2fs]\n"
+            % (t["produce"], t["fetch_wait"], t["route"], t["flush"], unit,
+               n, t["read"], t["dup"], t["pad"], t["submit"]))
+        sys.stderr.write("TIMING workers dispatch=%.2fs device_get=%.2fs\n"
+                         % (t_dispatch, t_get))
+        # cpu close to wall: one core is saturated; cpu far below wall: the
+        # loop waits (for the device or for files)
+        ru1 = resource.getrusage(resource.RUSAGE_SELF)
+        sys.stderr.write(
+            "TIMING cpu user=%.2fs sys=%.2fs wall=%.2fs "
+            "minflt=%d majflt=%d\n"
+            % (ru1.ru_utime - self.ru0.ru_utime,
+               ru1.ru_stime - self.ru0.ru_stime,
+               time.monotonic() - self.wall0,
+               ru1.ru_minflt - self.ru0.ru_minflt,
+               ru1.ru_majflt - self.ru0.ru_majflt))
+
+
 class BaseProcessor:
     """Host state shared by the processors: options, the static device
     config, UMI and duplicate handlers, the torch devices of the run (one,
@@ -295,36 +367,62 @@ class BaseProcessor:
                    if multihost.active() else None)
             self.duplicate = Duplicate(opt, precomputed=pre)
         self.width = _round_width(max(opt.seqLen1, opt.seqLen2, 32))
+        self.batches = 0
+        # called after every batch the loop has written (cli.py's trace
+        # window steps on it)
+        self.on_batch = None
+        # the pipeline's workers and their wall times
+        self._pools = {}
+        self._t_dispatch = self._t_get = 0.0
+        self._t_lock = threading.Lock()
+        # the input packers' state: learned quality dictionaries, and the
+        # schemes a batch of this run has already fallen out of
+        self._qdict = self._qdict2 = None
+        self._nib_dead = self._p3_dead = False
+        self.input_kinds = collections.Counter()   # batches per scheme
 
     def _wrap_step(self, build):
         """The run's step from build_se_step or build_pe_step: on one
         device the step itself, on several the split of it."""
+        self._build = build
+        self._packed_steps = {}
         if self.n_dev == 1:
             return build(self.cfg, self.device)
         from ..parallel.mesh import build_sharded_step
         return build_sharded_step(build, self.cfg, self.devices)
 
-    def _call_step(self, step, args) -> dict:
-        """Run the step on one batch and fetch its outputs.  In accumulate
-        mode the batch's sums leave the output dict before the fetch and
-        are added, as one int64 vector, to the resident vector of the
-        batch's width (a wider batch starts a new chain: the per-cycle
-        sums change shape with it)."""
-        dev_out = step.run(*args)
-        if self._accum:
-            sums = {k: dev_out.pop(k) for k in list(dev_out)
-                    if isinstance(dev_out[k], dict) or k in ACC_KEYS}
-            delta, meta = flatten_int64(flat_leaves(sums))
-            width = args[0].shape[1]
-            ent = self._acc_state.get(width)
-            if ent is None:
-                # a chain counts in int64, whatever the leaf's own type
-                self._acc_state[width] = [
-                    delta, [(path, shape, torch.int64)
-                            for path, shape, _ in meta]]
-            else:
-                ent[0] += delta
-        return step.fetch(dev_out)
+    def _step_for(self, packed):
+        """The step for inputs packed as `packed` ("p3", "nib", True), built
+        at first use; it shares the plain step's stream, pinned buffers and
+        adapters."""
+        if not packed:
+            return self.step
+        step = self._packed_steps.get(packed)
+        if step is None:
+            step = self._packed_steps[packed] = self._build(
+                self.cfg, self.device, packed=packed, io=self.step.io)
+        return step
+
+    def _call_step(self, step, args):
+        """Queue the step on one batch and start the fetch of its outputs;
+        returns the pending fetch.  In accumulate mode the batch's sums
+        leave the output dict before the fetch and are added, as one int64
+        vector, to the resident vector of the batch's width (a wider batch
+        starts a new chain: the per-cycle sums change shape with it).  Runs
+        on the one dispatch worker, so the chain's additions keep their
+        order."""
+        with step.on_stream():
+            dev_out = step.run(*args)
+            if self._accum:
+                sums = {k: dev_out.pop(k) for k in list(dev_out)
+                        if isinstance(dev_out[k], dict) or k in ACC_KEYS}
+                delta, meta = acc_delta(sums)
+                ent = self._acc_state.get(dev_out.width)
+                if ent is None:
+                    self._acc_state[dev_out.width] = [delta, meta]
+                else:
+                    ent[0] += delta
+            return step.start_fetch(dev_out)
 
     def _fold_accs(self):
         """Fetch every accumulator chain (one transfer each: one per run
@@ -333,17 +431,288 @@ class BaseProcessor:
         when accumulate mode is off."""
         chains = list(self._acc_state.values())
         self._acc_state = {}
-        return [unflatten_host(flat, meta) for flat, meta in chains]
+        return [unpack_acc(self.step.fetch_vector(vec), meta)
+                for vec, meta in chains]
+
+    # --- packed inputs ----------------------------------------------------
+
+    def _input_pack_on(self) -> bool:
+        """Whether this run packs its inputs for the upload: on one device,
+        where the native library loaded, unless FASTP_TPU_NO_INPUT_PACK is
+        set.  The shards of a split take plain bytes (an exception list
+        indexes the whole batch)."""
+        return (self.n_dev == 1
+                and not os.environ.get("FASTP_TPU_NO_INPUT_PACK")
+                and native_mod.get_lib() is not None)
+
+    def _try_pack_nib(self, bases, quals):
+        """(packed_nibbles, exc_idx, exc_base, exc_qual) or None.
+
+        4-bit packing (2-bit base + 2-bit learned qual dictionary) halves
+        the bytes of the 1-byte scheme on binned-quality data.  The choice
+        is sticky per run: once a batch falls back (N-rich, or a fifth
+        quality value), nib stays off, because the dictionary is the
+        run's."""
+        if (os.environ.get("FASTP_TPU_NO_NIB") or self._nib_dead
+                or bases.shape[1] % 2):
+            return None
+        if self._qdict is None:
+            self._qdict = np.zeros(4, np.uint8)
+            self._qdict_n = np.zeros(1, np.int32)
+        res = native_mod.pack_nib(bases, quals, self._qdict, self._qdict_n)
+        if res is None:
+            self._nib_dead = True
+            return None
+        return res[:4]
+
+    def _p3_off(self) -> bool:
+        return bool(os.environ.get("FASTP_TPU_NO_NIB")
+                    or os.environ.get("FASTP_TPU_NO_P3") or self._p3_dead)
+
+    def _try_pack_p3(self, bases, quals):
+        """(bplane, qplane, exc_idx, exc_base, exc_qual) or None.
+
+        Planar 3-bit packing (a 2-bit base plane and a 1-bit qual plane
+        over a two-entry learned dictionary) takes a quarter off the 4-bit
+        scheme on two-level binned data (one dominant high quality and one
+        low; the rare values ride the exception list).  Sticky per run like
+        nib."""
+        if self._p3_off() or bases.shape[1] % 8:
+            return None
+        if self._qdict2 is None:
+            self._qdict2 = np.zeros(2, np.uint8)
+            self._qdict2_n = np.zeros(1, np.int32)
+        res = native_mod.pack_p3(bases, quals, self._qdict2, self._qdict2_n)
+        if res is None:
+            self._p3_dead = True
+            return None
+        return res[:5]
+
+    def _learn_p3_dict(self, *quals):
+        """Learn the two-entry p3 dictionary from the COMBINED histogram of
+        both mates' first batches (the native learner's rule: the two most
+        frequent values, the smaller winning a tie).  A dictionary from
+        read 1 alone can starve read 2 when the mates' dominant quality
+        bins differ: its exceptions overflow and p3 is off for the run."""
+        if self._p3_off():
+            return
+        if self._qdict2 is None:
+            self._qdict2 = np.zeros(2, np.uint8)
+            self._qdict2_n = np.zeros(1, np.int32)
+        if self._qdict2_n[0] >= 2:
+            return
+        hist = np.zeros(256, np.int64)
+        for q in quals:
+            hist += np.bincount(np.asarray(q, np.uint8).ravel(),
+                                minlength=256)
+        hist[0] = 0  # pad
+        if not hist.any():
+            return  # empty batch: the native learner handles it later
+        q0 = int(np.argmax(hist))  # first max = smallest value, as native
+        hist[q0] = 0
+        q1 = int(np.argmax(hist)) if hist.any() else q0
+        self._qdict2[0] = q0
+        self._qdict2[1] = q1
+        self._qdict2_n[0] = 2
+
+    def _try_pack_inputs(self, bases, quals):
+        """(packed, exc_idx, exc_base, exc_qual) or None: base and qual in
+        one byte per position, exceptional bytes in an exact scatter
+        list."""
+        res = native_mod.pack_bq(bases, quals)
+        return None if res is None else res[:4]
+
+    def _dispatch_mates(self, mates, lengths, aux):
+        """Pack the mates' (bases, quals) down the chain p3 -> nib -> one
+        byte -> plain, taking the first scheme that holds every mate, and
+        queue the step for it.  Returns the pending fetch."""
+        W = mates[0][0].shape[1]
+        lengths = [ln.astype(length_dtype(W)) for ln in lengths]
+        if self._input_pack_on():
+            if len(mates) > 1:
+                self._learn_p3_dict(*(q for _, q in mates))
+            for kind, pack in (("p3", self._try_pack_p3),
+                               ("nib", self._try_pack_nib),
+                               (True, self._try_pack_inputs)):
+                packed = []
+                for b, q in mates:
+                    res = pack(b, q)
+                    if res is None:
+                        break
+                    packed += res
+                else:
+                    qlut = {"p3": self._qdict2, "nib": self._qdict}.get(kind)
+                    args = tuple(packed) + (
+                        (qlut.copy(),) if qlut is not None else ())
+                    self.input_kinds[_KIND_NAMES[kind]] += 1
+                    return self._call_step(self._step_for(kind),
+                                           args + tuple(lengths) + aux)
+        self.input_kinds["plain"] += 1
+        args = ()
+        for (b, q), ln in zip(mates, lengths):
+            args += (b, q, ln)
+        return self._call_step(self.step, args + aux)
+
+    # --- the pipelined batch loop -----------------------------------------
+
+    def _pool(self, name: str, workers: int):
+        pool = self._pools.get(name)
+        if pool is None:
+            pool = self._pools[name] = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix="fastp_" + name)
+        return pool
+
+    def _prep_pool(self):
+        """One worker that runs produce() ahead of the main loop: the host
+        prep of the batches to come overlaps this batch's routing and the
+        device's work.  One worker keeps the reader, the UMI and the
+        duplicate state sequential."""
+        return self._pool("prep", 1)
+
+    def _upload_pool(self):
+        """One worker for input packing, uploads and the step's launches.
+        One worker keeps dispatch order = input order, and with it the
+        order of the accumulator's additions and the kernel's launch
+        count."""
+        return self._pool("upload", 1)
+
+    def _fetch_pool(self):
+        """Workers that wait for a batch's fetch event and unpack its buffer
+        (FASTP_TPU_FETCH_WORKERS, 2 unless set); the per-batch futures keep
+        the order."""
+        return self._pool("fetch", max(1, int(os.environ.get(
+            "FASTP_TPU_FETCH_WORKERS", "2"))))
+
+    def _batch_stream(self, produce, depth: int = None):
+        """Yield produce()'s results with `depth` calls in flight on the
+        prep worker; ends at the first None.  Depth bounds how many batches
+        are under way at once, from produce to fetch (FASTP_TPU_PREFETCH, 3
+        unless set, at least 1).  Up to `depth` calls are made past the end
+        of the input; produce() answers those with None and starts
+        nothing."""
+        if depth is None:
+            depth = max(1, int(os.environ.get("FASTP_TPU_PREFETCH", "3")))
+        pool = self._prep_pool()
+        q = collections.deque(pool.submit(produce) for _ in range(depth))
+        while True:
+            item = q.popleft().result()
+            if item is None:
+                for f in q:  # the speculative calls past the end
+                    f.result()
+                return
+            q.append(pool.submit(produce))
+            yield item
+
+    def _submit_batch(self, dispatch_fn, *args):
+        """Pipeline one batch: dispatch_fn(*args) on the dispatch worker,
+        the wait for its fetch on a fetch worker.  Returns a future of the
+        unpacked numpy dict; an exception of either worker comes out of its
+        result()."""
+        def _dispatch():
+            t0 = time.monotonic()
+            try:
+                return dispatch_fn(*args)
+            finally:
+                self._t_dispatch += time.monotonic() - t0   # one worker
+
+        disp = self._upload_pool().submit(_dispatch)
+
+        def _fetch():
+            pending = disp.result()
+            t0 = time.monotonic()
+            try:
+                return pending.wait()
+            finally:
+                with self._t_lock:
+                    self._t_get += time.monotonic() - t0
+
+        return self._fetch_pool().submit(_fetch)
+
+    def _close_pool(self):
+        """End the workers (a resident server would otherwise keep three
+        pools of threads per job): what is queued is dropped, what runs is
+        waited for."""
+        for name in ("prep", "upload", "fetch"):
+            pool = self._pools.pop(name, None)
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def _run_batches(self, produce, flush, open_things, unit: str) -> int:
+        """The batch loop.  produce() reads and submits one batch and
+        returns its item (None at the end); for every item, in input order,
+        this thread waits for the fetched outputs (item.out),
+        self._process_batch(item) counts and routes them, and
+        flush(item, routed) hands the bytes to the writers.  Then the
+        accumulator's chains are added (self._add_sums) and the workers
+        ended.  When anything raises, in this thread or in a worker, the
+        run is abandoned with that exception.  Returns the number of reads
+        or pairs seen."""
+        timer = _LoopTimer()
+
+        def produce_timed():
+            t0 = time.monotonic()
+            try:
+                return produce(timer)
+            finally:
+                timer.add("produce", t0)
+
+        seen = 0
+        try:
+            for item in self._batch_stream(produce_timed):
+                t0 = time.monotonic()
+                item.out = item.pending.result()
+                t0 = timer.add("fetch_wait", t0)
+                routed = self._process_batch(item)
+                t0 = timer.add("route", t0)
+                flush(item, routed)
+                timer.add("flush", t0)
+                seen += item.B
+                self.batches += 1
+                self._log_progress(seen)
+                if self.on_batch is not None:
+                    self.on_batch()
+            # accumulate mode: the run's sums arrive now
+            for vals in self._fold_accs():
+                self._add_sums(vals)
+        except BaseException:
+            self._abandon(open_things)
+            raise
+        timer.report(unit, seen, self._t_dispatch, self._t_get)
+        self._close_pool()
+        return seen
+
+    def process(self) -> Dict:
+        """Run the job.  FASTP_TPU_CPUPROFILE=<file> writes a cProfile dump
+        of the calling thread (counting, routing, writing; the workers are
+        not in it: FASTP_TPU_TIMING=1 has their wall split)."""
+        prof_path = os.environ.get("FASTP_TPU_CPUPROFILE")
+        if not prof_path:
+            return self._process_inner()
+        import cProfile
+        prof = cProfile.Profile()
+        prof.enable()
+        try:
+            return self._process_inner()
+        finally:
+            prof.disable()
+            prof.dump_stats(prof_path)
 
     def _abandon(self, open_things):
-        """A run that dies between batches: end the writers' threads, give
-        the Bloom buffers back and drop the accumulator, so that a resident
-        server keeps none of them after a failed job."""
+        """A run that dies between batches: end the workers (first, so that
+        none of them reads or dispatches any more), the writers' threads,
+        give the Bloom buffers back and drop the accumulator, so that a
+        resident server keeps none of them after a failed job.  The caller
+        raises the job's own exception; a failure to end a worker or a
+        writer on the way is reported on stderr."""
+        try:
+            self._close_pool()
+        except Exception as exc:
+            _warn_left_open("the workers", exc)
         for thing in open_things:
             try:
                 thing.close()
-            except Exception:
-                pass
+            except Exception as exc:
+                _warn_left_open(type(thing).__name__, exc)
         if self.duplicate is not None:
             self.duplicate.release()
         self._acc_state = {}
@@ -475,9 +844,21 @@ class SingleEndProcessor(BaseProcessor):
         self.filter_result = FilterResult(opt, False)
         self.overrep_pre = _OverRepCounter(self.pre_stats, opt)
         self.overrep_post = _OverRepCounter(self.post_stats, opt)
-        self.batches = 0
 
-    def process(self) -> Dict:
+    def _dispatch(self, bases_p, quals_p, lengths_p, pre_trim_p,
+                  index_drop_p, dedup_p, valid):
+        """Pack, upload and queue the step for one padded batch (on the
+        dispatch worker).  Returns the pending fetch."""
+        aux = make_aux(self.cfg, valid, pre_trim_p, None, index_drop_p,
+                       dedup_p)
+        return self._dispatch_mates([(bases_p, quals_p)], [lengths_p], aux)
+
+    def _log_progress(self, seen: int):
+        if self.opt.verbose and seen >= self._last_reported + 1000000:
+            self._last_reported = seen
+            loginfo("loaded %dM reads" % (seen // 1000000))
+
+    def _process_inner(self) -> Dict:
         opt = self.opt
         reader = open_batch_reader(opt.in1, opt.phred64,
                                    getattr(opt, "shardRange1", None),
@@ -493,45 +874,83 @@ class SingleEndProcessor(BaseProcessor):
             if opt.failedOut:
                 failed_writer = OutputWriter(opt.failedOut, opt.compression,
                                              buffer_size=opt.writerBufferSize)
-        reads_seen = 0
-        last_reported = 0
-        try:
-            while True:
-                n = opt.batchSize
-                if opt.readsToProcess > 0:
-                    n = min(n, opt.readsToProcess - reads_seen)
-                    if n <= 0:
-                        break
-                batch = reader.read_batch(n, self.width)
-                if batch is None:
-                    break
-                blob, failed, post_count = self._process_batch(batch,
-                                                               reads_seen)
-                if split is not None:
-                    split.write1(blob, post_count if opt.split.byFileLines
-                                 else batch.n)
-                elif out_writer is not None:
-                    out_writer.write(blob)
-                if failed_writer is not None:
-                    failed_writer.write(failed)
-                reads_seen += batch.n
-                self.batches += 1
-                if opt.verbose and reads_seen >= last_reported + 1000000:
-                    last_reported = reads_seen
-                    loginfo("loaded %dM reads" % (reads_seen // 1000000))
-        except BaseException:
-            self._abandon([reader] + [w for w in (out_writer, failed_writer,
-                                                  split) if w is not None])
-            raise
+        self._last_reported = 0
+        state = SimpleNamespace(eof=False, read=0)
+
+        def produce(timer):
+            """Read one batch, run the host pre-ops and submit it; called
+            ahead of the loop, on the prep worker.  The item carries the
+            batch's starting read index and its width: this function runs
+            ahead of whoever consumes the item."""
+            if state.eof:
+                return None
+            n = opt.batchSize
+            if opt.readsToProcess > 0:
+                n = min(n, opt.readsToProcess - state.read)
+                if n <= 0:
+                    state.eof = True
+                    return None
+            t0 = time.monotonic()
+            batch = reader.read_batch(n, self.width)
+            t0 = timer.add("read", t0)
+            if batch is None:
+                state.eof = True
+                return None
+            B = batch.n
+            self.width = batch.width
+            index_drop = self._index_drop_mask_batches(batch)
+            if opt.fixMGI:
+                batch.set_names([fix_mgi(nm)[0] for nm in batch.names])
+            if opt.umi.enabled:
+                res = self.umi.process_batch_arrays(batch)
+                if res is not None:
+                    pre_trim = res[0]
+                else:
+                    names_u, _, pre_trim, _ = self.umi.process_batch(
+                        batch.names, batch.seqs())
+                    batch.set_names(names_u)
+                    pre_trim = np.asarray(pre_trim, np.int32)
+            else:
+                pre_trim = np.zeros(B, np.int32)
+            dedup_out = np.zeros(B, bool)
+            if self.duplicate is not None:
+                t0 = time.monotonic()
+                dup = self.duplicate.check_batch_se(batch.bases,
+                                                    batch.lengths)
+                timer.add("dup", t0)
+                if opt.duplicate.dedup:
+                    dedup_out = dup
+            t0 = time.monotonic()
+            padded, valid = self._pad_batch(
+                [batch.bases, batch.quals, batch.lengths, pre_trim,
+                 index_drop, dedup_out], B, target=opt.batchSize)
+            t0 = timer.add("pad", t0)
+            pending = self._submit_batch(self._dispatch, *padded, valid)
+            timer.add("submit", t0)
+            item = SimpleNamespace(
+                pending=pending, out=None, batch=batch, B=B, start=state.read,
+                index_drop=index_drop, pre_trim=pre_trim,
+                dedup_out=dedup_out)
+            state.read += B
+            return item
+
+        def flush(item, routed):
+            blob, failed, post_count = routed
+            if split is not None:
+                split.write1(blob, post_count if opt.split.byFileLines
+                             else item.B)
+            elif out_writer is not None:
+                out_writer.write(blob)
+            if failed_writer is not None:
+                failed_writer.write(failed)
+
+        open_things = [reader] + [w for w in (out_writer, failed_writer,
+                                              split) if w is not None]
+        reads_seen = self._run_batches(produce, flush, open_things, "reads")
         if opt.verbose:
             loginfo("batch loop done (%d reads)" % reads_seen)
-        reader.close()
-        for wtr in (out_writer, failed_writer, split):
-            if wtr is not None:
-                wtr.close()
-        # accumulate mode: the run's sums arrive now
-        for vals in self._fold_accs():
-            self._add_sums(vals)
+        for thing in open_things:
+            thing.close()
         return self._finish()
 
     def _add_sums(self, vals):
@@ -546,39 +965,18 @@ class SingleEndProcessor(BaseProcessor):
             self.filter_result.filter_read_stats += \
                 vals["result_hist"].astype(np.int64)
 
-    def _process_batch(self, batch, reads_seen: int):
-        """Host pre-ops, the step, counting, adapter recording and
-        serialization of one batch.  Returns (passing reads' FASTQ,
-        --failed_out FASTQ, number of passing reads)."""
+    def _process_batch(self, item):
+        """The consuming half of one batch, in input order on the calling
+        thread: counting, adapter recording, overrepresentation sampling
+        and serialization of the fetched outputs (item.out).  Returns
+        (passing reads' FASTQ, --failed_out FASTQ, number of passing
+        reads)."""
         opt = self.opt
-        B = batch.n
-        self.width = batch.width
-        index_drop = self._index_drop_mask_batches(batch)
-        if opt.fixMGI:
-            batch.set_names([fix_mgi(nm)[0] for nm in batch.names])
-        if opt.umi.enabled:
-            res = self.umi.process_batch_arrays(batch)
-            if res is not None:
-                pre_trim = res[0]
-            else:
-                names_u, _, pre_trim, _ = self.umi.process_batch(
-                    batch.names, batch.seqs())
-                batch.set_names(names_u)
-                pre_trim = np.asarray(pre_trim, np.int32)
-        else:
-            pre_trim = np.zeros(B, np.int32)
+        batch, B, out = item.batch, item.B, item.out
+        index_drop, pre_trim, dedup_out = (item.index_drop, item.pre_trim,
+                                           item.dedup_out)
+        reads_seen = item.start
         bases, quals, lengths = batch.bases, batch.quals, batch.lengths
-        dedup_out = np.zeros(B, bool)
-        if self.duplicate is not None:
-            dup = self.duplicate.check_batch_se(bases, lengths)
-            if opt.duplicate.dedup:
-                dedup_out = dup
-
-        (bp, qp, lp, ptp, idxp, dedp), valid = self._pad_batch(
-            [bases, quals, lengths, pre_trim, index_drop, dedup_out], B,
-            target=opt.batchSize)
-        out = self._call_step(self.step, (bp, qp, lp) + make_aux(
-            self.cfg, valid, ptp, None, idxp, dedp))
         # lean steps drop total_front when no front trim/cut can move the
         # window start on device: it is exactly the host pre-trim
         out.setdefault("total_front", pre_trim)
@@ -662,7 +1060,8 @@ class SingleEndProcessor(BaseProcessor):
                     self.duplicate.release()
                 return {"pre": self.pre_stats, "post": self.post_stats,
                         "filter": self.filter_result, "dup_rate": 0.0,
-                        "batches": self.batches}
+                        "batches": self.batches,
+                        "input_kinds": dict(self.input_kinds)}
         sys.stderr.write("Read1 before filtering:\n")
         self._print_stats(self.pre_stats)
         sys.stderr.write("\nRead1 after filtering:\n")
@@ -685,7 +1084,8 @@ class SingleEndProcessor(BaseProcessor):
             self.duplicate.release()
         return {"pre": self.pre_stats, "post": self.post_stats,
                 "filter": self.filter_result, "dup_rate": dup_rate,
-                "batches": self.batches}
+                "batches": self.batches,
+                "input_kinds": dict(self.input_kinds)}
 
 
 class SplitWriterSet:

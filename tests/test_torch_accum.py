@@ -185,11 +185,11 @@ def test_a_run_that_dies_drops_its_chains(corpus, tmp_path, monkeypatch):
     real = t_pe_runner.PairEndProcessor._process_batch
     seen = {}
 
-    def second_batch_fails(self, batch1, batch2, pairs_seen):
-        if pairs_seen:
+    def second_batch_fails(self, item):
+        if item.start:
             seen["proc"], seen["chains"] = self, len(self._acc_state)
             raise RuntimeError("batch failed")
-        return real(self, batch1, batch2, pairs_seen)
+        return real(self, item)
 
     monkeypatch.setattr(t_pe_runner.PairEndProcessor, "_process_batch",
                         second_batch_fails)
@@ -206,18 +206,16 @@ def test_the_accumulator_counts_in_int64(tmp_path, monkeypatch):
     proc = t_runner.SingleEndProcessor(opt, "cpu")
     big = 2 ** 31 + 5
 
-    class Twice:
-        @staticmethod
-        def run(*args):
-            return {"pre": {"reads": torch.tensor(big, dtype=torch.int64)},
-                    "polyx_reads": torch.full((4,), 2 ** 30,
-                                              dtype=torch.int32),
-                    "rlen": torch.zeros(2, dtype=torch.int32)}
-        fetch = staticmethod(t_device.Step.fetch)
+    def run(*args):
+        return t_device.StepOut(
+            {"pre": {"reads": torch.tensor(big, dtype=torch.int64)},
+             "polyx_reads": torch.full((4,), 2 ** 30, dtype=torch.int32),
+             "rlen": torch.zeros(2, dtype=torch.int32)}, rows=2, width=32)
 
+    twice = t_device.Step(run, proc.step.io)
     args = (np.zeros((2, 32), np.uint8),)
     for _ in range(4):
-        out = proc._call_step(Twice, args)
+        out = proc._call_step(twice, args).wait()
         assert set(out) == {"rlen"}
     (vals,) = proc._fold_accs()
     assert vals["pre"]["reads"].dtype == np.int64

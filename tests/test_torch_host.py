@@ -277,6 +277,49 @@ def test_batch_readers_and_serializer_are_equal(native_libs, path):
         (np.arange(ours.n) % 3 != 0).sum())
 
 
+@pytest.mark.parametrize("scheme", ["pack_p3", "pack_nib", "pack_bq"])
+@pytest.mark.parametrize("path", [R1, R2])
+def test_native_packers_are_equal(native_libs, path, scheme):
+    """io/native.py's input packers, which the port's dispatch now calls,
+    against the originals' on the same batch and on a copy with rare bytes
+    planted (N, a lowercase base, a quality off every dictionary): the same
+    packed arrays, exception lists, counts and learned dictionaries."""
+    reader = t_fastq.open_batch_reader(path, False)
+    batch = reader.read_batch(8192, 160)
+    reader.close()
+    rng = np.random.default_rng(len(scheme))
+    for plant in (False, True):
+        bases, quals = batch.bases.copy(), batch.quals.copy()
+        if plant:
+            real = np.flatnonzero(bases.reshape(-1))
+            hit = rng.choice(real, 40, replace=False)
+            bases.reshape(-1)[hit[:20]] = ord("N")
+            bases.reshape(-1)[hit[20:30]] = ord("a")
+            quals.reshape(-1)[hit[30:]] = 126
+        results = []
+        for native in (t_native, j_native):
+            if scheme == "pack_bq":
+                res, state = native.pack_bq(bases, quals), ()
+            else:
+                state = (np.zeros(2 if scheme == "pack_p3" else 4, np.uint8),
+                         np.zeros(1, np.int32))
+                res = getattr(native, scheme)(bases, quals, *state)
+            results.append((res, state))
+        (ours, our_state), (theirs, their_state) = results
+        assert (ours is None) == (theirs is None)
+        for a, b in zip(our_state, their_state):
+            assert np.array_equal(a, b)
+        if ours is None:
+            continue
+        assert ours[-1] == theirs[-1]
+        if plant:
+            assert ours[-1] > 0
+        for a, b in zip(ours[:-1], theirs[:-1]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert t_native.nib_exc_cap(8192 * 160) == j_native.nib_exc_cap(8192 * 160)
+    assert t_native.PACK_EXC_CAP == j_native.PACK_EXC_CAP
+
+
 @pytest.mark.parametrize("no_native", [False, True])
 def test_evaluator_prepass_is_equal(no_native, monkeypatch):
     if no_native:

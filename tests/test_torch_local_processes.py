@@ -8,13 +8,15 @@ refused), then single-end input, gzip input (record ranges, not byte
 ranges), --interleaved_in, --merge --dedup, FASTP_TPU_LOCAL_PROCESSES, a
 child that fails (the launcher exits non-zero at once and shows its log),
 and a differential against `python -m fastp_tpu --local_processes 2` on a
-3,000-pair tools/make_synth.py corpus, shard file by shard file.  Exact
+3,000-pair tools/make_synth.py corpus, shard file by shard file, and on a
+40,000-pair corpus that fills the maps of trimmed adapters.  Exact
 throughout: the shards' FASTQ files laid end to end equal the single
 process's bytes, and the merged fastp.json equals its JSON after the
 command-line normalisation.  Every process is asked for the CPU
 (FASTP_TPU_TORCH_DEVICE=cpu) and runs torch with one thread.
 """
 import gzip
+import json
 import os
 import subprocess
 import sys
@@ -268,3 +270,54 @@ def test_matches_fastp_tpu_shard_by_shard(tmp_path):
         assert a == b and a, name
     with open(ours / "fastp.json") as fa, open(theirs / "fastp.json") as fb:
         assert normalize_json(fa.read()) == normalize_json(fb.read())
+
+
+def test_capped_adapter_maps_across_shards_match_fastp_tpu(tmp_path):
+    """40,000 pairs that all read through their adapter give more than the
+    20,000 distinct trimmed sequences a map of adapters takes.  Then
+    read1/read2_adapter_counts depend on how the input was cut, in numbers
+    and in which sequences reach the one percent that gets them named: one
+    process and two shards differ there and nowhere else, and the port's
+    report equals `python -m fastp_tpu`'s in both."""
+    r1, r2 = str(tmp_path / "R1.fq"), str(tmp_path / "R2.fq")
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
+                    "--reads", "40000", "--short-insert-rate", "1.0",
+                    "--seed", "7", "--out1", r1, "--out2", r2],
+                   check=True, capture_output=True)
+    args = ["-i", r1, "-I", r2] + PE_OUT + [
+        "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA", "--adapter_sequence_r2",
+        "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT", "--batch_size", "4096"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", FASTP_TPU_TORCH_DEVICE="cpu",
+               OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = {}
+    for module in ("fastp_tpu_torch", "fastp_tpu"):
+        for n in (1, 2):
+            d = tmp_path / ("%s_%d" % (module, n))
+            d.mkdir()
+            extra = ["--local_processes", "2"] if n == 2 else []
+            runs[module, n] = d, subprocess.Popen(
+                [sys.executable, "-m", module] + args + extra, cwd=str(d),
+                env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)
+    reports = {}
+    for key, (d, proc) in runs.items():
+        _, err = proc.communicate(timeout=900)
+        assert proc.returncode == 0, (key, err[-4000:])
+        with open(d / "fastp.json") as fh:
+            reports[key] = normalize_json(fh.read()).split("\n")
+    for n in (1, 2):
+        assert reports["fastp_tpu_torch", n] == reports["fastp_tpu", n], n
+
+    def counts(report):
+        found = [json.loads("{" + ln.strip().rstrip(",") + "}")
+                 for ln in report if "_adapter_counts" in ln]
+        assert len(found) == 2
+        return [next(iter(f.values())) for f in found]
+
+    whole, sharded = reports["fastp_tpu_torch", 1], reports["fastp_tpu_torch", 2]
+    assert ([ln for ln in whole if "_adapter_counts" not in ln]
+            == [ln for ln in sharded if "_adapter_counts" not in ln])
+    for one, two in zip(counts(whole), counts(sharded)):
+        assert sum(one.values()) < sum(two.values())     # the one map capped
+        assert set(two) < set(one)       # and so names more sequences

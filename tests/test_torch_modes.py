@@ -10,7 +10,9 @@ normalisation):
   stream; the side streams keep their files);
 * SE --adapter_fasta with a two-adapter FASTA;
 * --allow_gap_overlap_trimming with correction;
-* a PE251 corpus (tools/make_synth.py --read-len 251) with the bench flags.
+* a PE251 corpus (tools/make_synth.py --read-len 251) with the bench flags;
+* the NovaSeq flags of cfg4 (polyG and polyX trimming, a UMI taken from
+  read 1, the low-complexity filter) on the 2,000-pair corpus, PE and SE.
 
 And --stdin --stdout on the cfg1 input gives the cfg1 golden's out.fq.
 The fastp_tpu runs start together, four at a time, in a module fixture.
@@ -26,6 +28,8 @@ from test_torch_cli import (BENCH, GOLDENS, R1, ROOT, assert_same_outputs,
                             make_corpus, run_module)
 from test_torch_step import FASTA
 PAIRS = ["-i", "{r1}", "-I", "{r2}"]
+NOVASEQ = ["--trim_poly_g", "--trim_poly_x", "--umi", "--umi_loc", "read1",
+           "--umi_len", "4", "--low_complexity_filter"]
 # name -> (arguments, file for standard input, file for standard output)
 CASES = {
     "interleaved": (["-i", "{il}", "--interleaved_in", "-o", "out1.fq",
@@ -45,6 +49,9 @@ CASES = {
                      "--cut_right"], None, None),
     "pe251": (["-i", "{r1_251}", "-I", "{r2_251}", "-o", "out1.fq", "-O",
                "out2.fq"] + BENCH, None, None),
+    "novaseq_pe": (PAIRS + ["-o", "out1.fq", "-O", "out2.fq"] + NOVASEQ, None,
+                   None),
+    "novaseq_se": (["-i", "{r1}", "-o", "out.fq"] + NOVASEQ, None, None),
 }
 
 
