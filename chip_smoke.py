@@ -68,7 +68,20 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  server runs it, with the thread count before and after; a
                  FASTP_TPU_PROFILE run that leaves a non-empty trace; then
                  the FASTP_TPU_TIMING lines of every 1M-pair run so far
- 13. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
+ 13. graph    -- the step as a CUDA graph against the eager step
+                 (graph=False) on the card, on the corpus's first 20,000
+                 pairs (three batches, the last partial): every batch that
+                 the runs queued goes through both again, bit-equal on every
+                 key, for the main path with p3, nib, one-byte and plain
+                 inputs, se, failed, merge, --allow_gap_overlap_trimming and
+                 --devices 2 on cuda:0,cuda:0; a second job of the main path
+                 through server._run_job captures nothing and writes the
+                 same files; the host calls per batch that put work on the
+                 card (torch.profiler's cudaLaunchKernel, cudaGraphLaunch
+                 and cudaMemcpyAsync), graph and eager, on main, se, failed
+                 and merge; every capture with its seconds and the reserved
+                 bytes it added; the TIMING split of the four 1M-pair paths
+ 14. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
                  jobs through the thin client (FASTP_TPU_SERVER): three
                  20,000-pair jobs of the main path served and the same job
                  once as a cold process, their wall times; the main path's
@@ -77,7 +90,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  --dedup job twice, the second equal to the first; `ping`
                  counts the jobs; a second `serve` on the live socket exits
                  non-zero; `shutdown` ends the server and removes the socket
- 14. procs    -- the main path's first 200,000 pairs with --local_processes
+ 15. procs    -- the main path's first 200,000 pairs with --local_processes
                  2 and 4 on the one card, and as one process of its own: the
                  shards' files in order equal those of the same prefix run in
                  this script's process, the merged JSON too (but for
@@ -92,24 +105,24 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  script's process (cfg5's flags less
                  --overrepresentation_analysis, whose sampling goes by a
                  read's index within its process)
- 15. dist     -- the main path's first 200,000 pairs as two processes that
+ 16. dist     -- the main path's first 200,000 pairs as two processes that
                  exchange over torch.distributed (gloo on 127.0.0.1,
                  MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; no
                  FASTP_TPU_FS_EXCHANGE),
                  both on the one card: the ranks' files in order equal those
                  of the same prefix run in this script's process, the merged
                  JSON too (read1/read2_adapter_counts held as in phase 14)
- 16. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
+ 17. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
                  paired samples and one single-end sample against direct
                  runs of the same arguments (in this script's process);
                  overall.html is written
- 17. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
+ 18. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
                  overlap checks through the kernel at one pair row
- 18. no_card  -- serve --warm, test, --local_processes 2 and the batch
+ 19. no_card  -- serve --warm, test, --local_processes 2 and the batch
                  runner with the card hidden and no request for the CPU:
                  each exits non-zero and writes nothing (while the self-test's
                  process runs)
-Phases 13 to 18 start the port as a user would, in processes of their own;
+Phases 14 to 19 start the port as a user would, in processes of their own;
 each job there appends the overlap kernel's launches to the file that
 FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just before the phase and read
 just after.  The corpus is written by tools/make_synth.py in a process of
@@ -122,6 +135,11 @@ a JSON line of the kernel results and, last, the device line.
 runs phases 1 to 3 alone; with --old-kernel it also builds an earlier
 version of the kernel's source (same C interface), checks it against the
 plain version and times the two in turns (old, new, new, old).
+
+    python3 chip_smoke.py --graph-only
+
+runs phases 1 and 2 and then phase graph alone, on a corpus of 20,000
+pairs (no TIMING split: the 1M-pair paths are not driven).
 
     python3 chip_smoke.py --turns VAR=VALUE ROUNDS
 
@@ -144,6 +162,7 @@ The script imports no JAX and nothing of fastp_tpu.
 """
 import argparse
 import contextlib
+import functools
 import gzip
 import io
 import json
@@ -637,14 +656,14 @@ def phase_golden(work):
           % "; ".join(compared), flush=True)
 
 
-def _start_corpus(work):
+def _start_corpus(work, pairs=MAIN_PAIRS):
     """tools/make_synth.py writing the corpus, as a process of its own (one
     core for most of a minute); _finish_corpus waits for it."""
     r1 = os.path.join(work, "R1.fq")
     r2 = os.path.join(work, "R2.fq")
     proc = subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "tools", "make_synth.py"),
-         "--reads", str(MAIN_PAIRS), "--seed", "42", "--out1", r1,
+         "--reads", str(pairs), "--seed", "42", "--out1", r1,
          "--out2", r2], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
         text=True)
     return proc, r1, r2
@@ -668,6 +687,7 @@ def _run_in_process(argv, cwd, device="cuda", **env):
     log = io.StringIO()
     old = os.getcwd()
     saved = {k: os.environ.get(k) for k in env}
+    captured = len(step_device.graph_log)
     os.chdir(cwd)
     os.environ.update(env)
     try:
@@ -680,11 +700,17 @@ def _run_in_process(argv, cwd, device="cuda", **env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        if len(step_device.graph_log) > captured:
+            CAPTURES[os.path.basename(cwd)] = step_device.graph_log[captured:]
     return res, log.getvalue()
 
 
 # name of a driven run -> its FASTP_TPU_TIMING lines
 TIMING_LINES = {}
+# directory of a run in this process -> the graphs it captured
+# (pipeline/device.py:graph_log's entries: key, seconds, reserved bytes
+# added, launches per replay, warm-up seconds)
+CAPTURES = {}
 TIMING_ON = {"FASTP_TPU_TIMING": "1"}
 
 
@@ -1221,6 +1247,223 @@ def phase_pipeline(work, r1, r2):
     return launches, numbers
 
 
+@contextlib.contextmanager
+def _recorded_batches():
+    """Every batch the runs inside queue (BaseProcessor._call_step), as
+    (step, arguments, whether the run accumulates, cfg, devices): what phase
+    graph runs again through the eager step."""
+    from fastp_tpu_torch.pipeline import runner
+    real = runner.BaseProcessor._call_step
+    calls = []
+
+    def recording(proc, step, args):
+        calls.append((step, args, proc._accum, proc.cfg, proc.devices))
+        return real(proc, step, args)
+
+    runner.BaseProcessor._call_step = recording
+    try:
+        yield calls
+    finally:
+        runner.BaseProcessor._call_step = real
+
+
+def _eager_twin(step, cfg, devices):
+    """The eager step of the same configuration on the same devices
+    (graph=False), for the step a run took from the memo."""
+    from fastp_tpu_torch.parallel import mesh
+    build = step_device.build_pe_step if cfg.paired else step_device.build_se_step
+    if isinstance(step, mesh.ShardedStep):
+        return mesh.build_sharded_step(functools.partial(build, graph=False),
+                                       cfg, devices)
+    packed = next(k for k, v in step.entry.steps.items() if v is step)
+    kw = {"rowwise": True} if step.entry.rowwise else {}
+    return build(cfg, step.io.device, packed=packed, graph=False, **kw)
+
+
+def _batch_outputs(step, args, accum):
+    """One batch through `step` (run, fetch); returns the numpy dict with
+    the batch's sums put back in."""
+    from fastp_tpu_torch.parallel import mesh
+    if isinstance(step, mesh.ShardedStep):
+        return step(*args)
+    with step.on_stream():
+        out = step.run(*args, accum=accum)
+        if accum:
+            sums = step_device.unpack_acc(step.fetch_vector(out.delta),
+                                          out.acc_meta)
+        got = step.start_fetch(out).wait()
+    if accum:
+        got.update(sums)
+    return got
+
+
+def _as_the_loop_queues(step, calls):
+    """The batches of `calls` as the batch loop queues them
+    (runner.py:_call_step): the run, the accumulator's addition, the fetch;
+    the run's sums are not fetched."""
+    chain = None
+    for _, args, accum, _, _ in calls:
+        with step.on_stream():
+            out = step.run(*args, accum=accum)
+            if accum:
+                if chain is None:
+                    chain = out.delta.clone()
+                else:
+                    chain += out.delta
+            step.start_fetch(out).wait()
+
+
+def _bit_equal(got, want, what):
+    """Every key, dtype, shape and value the same; returns the keys."""
+    check(set(got) == set(want), "%s: keys %s against %s"
+          % (what, sorted(set(got) ^ set(want)), sorted(want)))
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            _bit_equal(g, w, "%s/%s" % (what, k))
+            continue
+        g, w = np.asarray(g), np.asarray(w)
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and np.array_equal(g, w), "%s: %s differs (%s %s against %s %s)"
+              % (what, k, g.dtype, g.shape, w.dtype, w.shape))
+    return sorted(want)
+
+
+def _launches_per_batch(fn, batches):
+    """Host calls that put work on the card, from torch.profiler's trace of
+    fn(): kernel launches, graph launches and copies, per batch."""
+    from torch import profiler
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {"cudaLaunchKernel": 0, "cudaGraphLaunch": 0,
+             "cudaMemcpyAsync": 0}
+    for ev in prof.events():
+        for name in names:
+            if ev.name.startswith(name):
+                names[name] += 1
+    return {k: v / batches for k, v in names.items()}
+
+
+def phase_graph(work, r1, r2, pipe_numbers=None):
+    """The step as a CUDA graph against the eager step on the card, on the
+    corpus's first CPU_PAIRS pairs (three batches, the last partial), and
+    what the graphs cost.  Returns {name: launches}."""
+    pe = ["-i", r1, "-I", r2]
+    main = pe + ["-o", "out1.fq", "-O", "out2.fq", *BENCH_FLAGS]
+    prefix = ["--reads_to_process", str(CPU_PAIRS)]
+    runs = {
+        # name: (arguments, environment, device request, input scheme)
+        "main_p3": (main, {}, "cuda", "p3"),
+        "main_nib": (main, {"FASTP_TPU_NO_P3": "1"}, "cuda", "nib"),
+        "main_bq": (main, {"FASTP_TPU_NO_NIB": "1"}, "cuda", "bq"),
+        "main_plain": (main, {"FASTP_TPU_NO_INPUT_PACK": "1"}, "cuda",
+                       "plain"),
+        "se": (["-i", r1, "-o", "out.fq"], {}, "cuda", None),
+        "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], {},
+                   "cuda", None),
+        "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS], {},
+                  "cuda", None),
+        "gap": (pe + ["-o", "out1.fq", "-O", "out2.fq", *GAP_FLAGS], {},
+                "cuda", None),
+        "devices_2": (main + ["--devices", "2"], {}, _one_card(2), None),
+    }
+    recorded, launches, equal = {}, {}, []
+    for name, (args, env, request, kind) in runs.items():
+        with _recorded_batches() as calls:
+            res, _, _, n = _drive(
+                work, "graph_" + name, args + prefix, device=request,
+                says="running on " + ("2 shards" if "," in request else
+                                      "cuda"), **env)
+        launches["graph_" + name] = n
+        check(len(calls) == res["batches"] == CPU_BATCHES,
+              "%s: %d batches queued for %d" % (name, len(calls),
+                                                res["batches"]))
+        if kind:
+            check(set(res["input_kinds"]) == {kind}, "%s went up as %s"
+                  % (name, res["input_kinds"]))
+        recorded[name] = calls
+        twins = {}
+        for b, (step, bargs, accum, cfg, devices) in enumerate(calls):
+            if id(step) not in twins:
+                twins[id(step)] = _eager_twin(step, cfg, devices)
+            want = _batch_outputs(twins[id(step)], bargs, accum)
+            got = _batch_outputs(step, bargs, accum)
+            keys = _bit_equal(got, want, "graph against eager, %s, batch %d"
+                              % (name, b + 1))
+        nvalid = int(calls[-1][1][-1])
+        check(nvalid < B, "%s: the last batch holds %d rows" % (name, nvalid))
+        equal.append("%s (%d keys, last batch %d of %d rows)"
+                     % (name, len(keys), nvalid, B))
+    # a second served job of one configuration: no capture, the same files
+    from fastp_tpu_torch import server
+    served = []
+    for k in range(2):
+        d = os.path.join(work, "graph_served%d" % k)
+        os.makedirs(d)
+        before = len(step_device.graph_log)
+        overlap_cuda.sweep_select.launches = 0
+        rc = server._run_job(["fastp_tpu_torch", *main, *prefix], d, None)
+        check(rc == 0, "served job %d exited %d" % (k, rc))
+        served.append((len(step_device.graph_log) - before,
+                       overlap_cuda.sweep_select.launches))
+    check(served[1][0] == 0 and served[1][1] == CPU_BATCHES,
+          "the second served job captured %d graphs, %d launches"
+          % served[1])
+    same_outputs(os.path.join(work, "graph_served1"),
+                 os.path.join(work, "graph_served0"),
+                 "the second served job vs the first")
+    # what a batch issues from Python: the graph's replay against the eager
+    # step, batches 2-3 of each path
+    per_batch = {}
+    for name in ("main_p3", "se", "failed", "merge"):
+        calls = recorded[name][1:]
+        step, _, _, cfg, devices = calls[0]
+        eager = _eager_twin(step, cfg, devices)
+        for label, which in (("graph", step), ("eager", eager)):
+            per_batch[name, label] = _launches_per_batch(
+                lambda: _as_the_loop_queues(which, calls), len(calls))
+        g = per_batch[name, "graph"]
+        check(g["cudaGraphLaunch"] == 1 and sum(g.values()) < 50,
+              "%s: per batch %s" % (name, g))
+    captures = {name: [(str(key[0][0][1]), key[1], key[2], round(sec, 3),
+                        round(warm, 3), nbytes, sweeps)
+                       for key, sec, nbytes, sweeps, warm in log]
+                for name, log in CAPTURES.items()}
+    timing = {}
+    for name in ("main", "se", "failed", "merge"):
+        for line in TIMING_LINES.get(name, []):
+            for field in ("produce", "dispatch", "fetch_wait", "wall"):
+                m = re.search(r"\b%s=([0-9.]+)s" % field, line)
+                if m:
+                    timing.setdefault(name, {})[field] = float(m.group(1))
+    trace = (pipe_numbers or {}).get("trace")
+    if trace is not None:
+        check(trace["overlap_sweep_events"] >= 1,
+              "the FASTP_TPU_PROFILE trace names no overlap_sweep: %s" % trace)
+    print("phase graph: %d pairs (%d batches, the last partial), graph "
+          "against eager on the card, bit-equal on every key of every "
+          "batch: %s; a second served job of the main path captured %d "
+          "graphs (the first %d) and wrote the same files; host calls per "
+          "batch that put work on the card (batches 2-3, torch.profiler): "
+          "%s; the captures of each run that made one, in this script's "
+          "process (first argument's shape, accum, shard, seconds of the "
+          "capture, of the warm-up runs, bytes of reserved memory it added, "
+          "overlap launches per replay): %s; %d captures in all; memo "
+          "entries %d, reserved %d bytes (one pool per "
+          "entry, shared by its graphs); TIMING of the 1M-pair paths: %s; "
+          "FASTP_TPU_PROFILE trace: %s"
+          % (CPU_PAIRS, CPU_BATCHES, "; ".join(equal), served[1][0],
+             served[0][0], json.dumps({"%s %s" % k: v
+                                       for k, v in per_batch.items()}),
+             json.dumps(captures), len(step_device.graph_log),
+             len(step_device._memo), torch.cuda.memory_reserved(),
+             json.dumps(timing), json.dumps(trace)), flush=True)
+    return launches
+
+
 def _prefix(src, dst, records, skip=0):
     """Records [skip, skip + records) of a FASTQ file as a file of its own."""
     with open(src, "rb") as fin, open(dst, "wb") as fout:
@@ -1735,9 +1978,9 @@ def against_parent(work, parent_root):
                 same_outputs(d, os.path.join(work, name + "_0_earlier"),
                              "%s, turn %d (%s) vs turn 0" % (name, k, which))
                 shutil.rmtree(d)
-            if k == 1:
+            if k < 2:
                 for line in timing:
-                    print("timing %s (this tree): %s" % (name, line),
+                    print("timing %s (%s tree): %s" % (name, which, line),
                           flush=True)
         shutil.rmtree(os.path.join(work, name + "_0_earlier"))
         report[name] = {
@@ -1988,6 +2231,9 @@ def main(argv=None):
                         help="phases device and build, then the 1M-pair main "
                              "path without and with VAR=VALUE in the "
                              "environment, in turns, four runs a round")
+    parser.add_argument("--graph-only", action="store_true",
+                        help="phases device and build, then phase graph on a "
+                             "corpus of its first 20,000 pairs")
     parser.add_argument("--against", metavar="CHECKOUT",
                         help="phases device and build, then the four 1M-pair "
                              "paths from an earlier checkout of the repository "
@@ -2001,6 +2247,14 @@ def main(argv=None):
             against_parent(work, args.against)
         print(card)
         print("--against run: no other phase was driven")
+        return 0
+    if args.graph_only:
+        os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
+            r1, r2 = _finish_corpus(_start_corpus(work, CPU_PAIRS))
+            phase_graph(work, r1, r2)
+        print(card)
+        print("graph-only run: no other phase was driven")
         return 0
     if args.turns:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
@@ -2037,6 +2291,8 @@ def main(argv=None):
             moved = _timed("accum", phase_accum, work, r1, r2)
             piped, pipe_numbers = _timed("pipeline", phase_pipeline, work,
                                          r1, r2)
+            launches.update(_timed("graph", phase_graph, work, r1, r2,
+                                   pipe_numbers))
             p1 = _prefix(r1, os.path.join(work, "P1.fq"), CPU_PAIRS)
             p2 = _prefix(r2, os.path.join(work, "P2.fq"), CPU_PAIRS)
             m1 = _prefix(r1, os.path.join(work, "M1.fq"), MID_PAIRS)

@@ -11,7 +11,8 @@ and without that request fails at once.  `--devices N` splits every batch
 over N devices (parallel/mesh.py:make_mesh has the rule, and what 0 means),
 and with the four torch.distributed variables set the run is one shard of a
 job on several hosts (parallel/mesh.py:init_distributed).  The run names its
-devices on stderr.
+devices on stderr.  The launcher of `--local_processes N` imports no torch,
+as fastp_tpu's launcher imports no JAX: its children do, each for itself.
 """
 from __future__ import annotations
 
@@ -19,10 +20,9 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import sys
 import time
-
-import torch
 
 from .config import (Options, error_exit, num2qual, check_file_valid,
                      FASTP_TPU_VER, UMI_LOC_INDEX1, UMI_LOC_INDEX2,
@@ -43,18 +43,22 @@ def resolve_devices(device=None) -> list:
     outright and may repeat one (parallel/mesh.py:make_mesh).  With neither
     the request is `cuda`.  A CUDA device that torch cannot see raises: the
     run never carries on on the CPU unasked."""
-    asked = device if device is not None else os.environ.get(DEVICE_ENV) or None
-    if isinstance(asked, str):
-        names = [s.strip() for s in asked.split(",") if s.strip()] or [None]
-    elif isinstance(asked, (list, tuple)):
-        names = list(asked)
-    else:
-        names = [asked]
-    devs = [_resolve_one(name) for name in names]
+    devs = [_resolve_one(name) for name in _asked(device)]
     if len({d.type for d in devs}) > 1:
         raise ValueError("%s: a list of devices is all cpu or all cuda"
                          % ",".join(str(d) for d in devs))
     return devs
+
+
+def _asked(device) -> list:
+    """The names of the device request (see resolve_devices), None for
+    `cuda`: strings or torch.devices as the caller gave them."""
+    asked = device if device is not None else os.environ.get(DEVICE_ENV) or None
+    if isinstance(asked, str):
+        return [s.strip() for s in asked.split(",") if s.strip()] or [None]
+    if isinstance(asked, (list, tuple)):
+        return list(asked)
+    return [asked]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,6 +67,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _resolve_one(asked) -> torch.device:
+    import torch
     dev = torch.device(asked if asked is not None else "cuda")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError("%s: fastp_tpu_torch runs on cpu, cuda or cuda:N "
@@ -77,6 +82,64 @@ def _resolve_one(asked) -> torch.device:
             raise RuntimeError("%s: torch sees %d CUDA device(s)"
                                % (dev, torch.cuda.device_count()))
     return dev
+
+
+_DEVICE_NAME = re.compile(r"(cpu|cuda)(?::(\d+))?")
+
+
+def cuda_card_count() -> int:
+    """The CUDA devices a child process will see: torch's count where this
+    process has imported torch already (asking costs nothing then), else
+    what the CUDA driver reports, asked through libcuda without creating a
+    context (CUDA_VISIBLE_DEVICES applies to both); 0 where there is no
+    driver."""
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    import ctypes
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return 0
+    lib.cuInit.argtypes = [ctypes.c_uint]
+    lib.cuInit.restype = ctypes.c_int
+    lib.cuDeviceGetCount.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.cuDeviceGetCount.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    if lib.cuInit(0) != 0 or lib.cuDeviceGetCount(ctypes.byref(count)) != 0:
+        return 0
+    return count.value
+
+
+def launcher_devices(device=None):
+    """The device request of a --local_processes launcher, as resolve_devices
+    reads it, but without importing torch: (the names, cuda_card_count(),
+    0 for the CPU).  Raises where resolve_devices would: a name
+    that is no device, a list of both kinds, no card for a CUDA request, an
+    index above the count."""
+    names = ["cuda" if n is None else str(n) for n in _asked(device)]
+    kinds = set()
+    for name in names:
+        if not _DEVICE_NAME.fullmatch(name):
+            raise ValueError("%s: fastp_tpu_torch runs on cpu, cuda or cuda:N "
+                             "(given by the caller or by %s)"
+                             % (name, DEVICE_ENV))
+        kinds.add(name.split(":")[0])
+    if len(kinds) > 1:
+        raise ValueError("%s: a list of devices is all cpu or all cuda"
+                         % ",".join(names))
+    if kinds == {"cpu"}:
+        return names, 0
+    count = cuda_card_count()
+    if count == 0:
+        raise RuntimeError(
+            "fastp_tpu_torch runs on a CUDA device and finds none; set %s=cpu "
+            "(or pass device=\"cpu\") to run on the CPU" % DEVICE_ENV)
+    for name in names:
+        if ":" in name and int(name.split(":")[1]) >= count:
+            raise RuntimeError("%s: the host has %d CUDA device(s)"
+                               % (name, count))
+    return names, count
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -370,6 +433,7 @@ def options_from_args(args, argv) -> Options:
 
 def describe_device(device: torch.device) -> str:
     if device.type == "cuda":
+        import torch
         return "%s (%s)" % (device, torch.cuda.get_device_name(device))
     return device.type
 
@@ -418,7 +482,7 @@ def _clear_exchange_files(directory: str):
                 pass
 
 
-def _spawn_local_shards(argv, n: int, opt, devices) -> int:
+def _spawn_local_shards(argv, n: int, opt, devices, cards: int) -> int:
     """Same-host scale-out: run the job as N record-range-sharded processes
     of the port and merge their stats into one report.
 
@@ -431,16 +495,16 @@ def _spawn_local_shards(argv, n: int, opt, devices) -> int:
     dedup, and a single merged JSON/HTML report from shard 0 through files
     next to the report.
 
-    Device assignment: every child runs on the launcher's device (given by
-    the caller or by FASTP_TPU_TORCH_DEVICE), so on a host with one card all
-    share `cuda:0`.  A request of `cuda` with no index goes to the children
-    as `cuda:0`: left as it is, every child would split its batches over
-    every card of the host (make_mesh).  A comma list goes to them as it
-    is.  FASTP_TPU_ASSIGN_CHIPS=1 gives child k
-    `cuda:(k mod torch.cuda.device_count())` instead, and
+    Device assignment: every child runs on the launcher's device request
+    (`devices`: names, from launcher_devices), so on a host with one card
+    all share `cuda:0`.  A request of `cuda` with no index goes to the
+    children as `cuda:0`: left as it is, every child would split its batches
+    over every card of the host (make_mesh).  A comma list goes to them as
+    it is.  FASTP_TPU_ASSIGN_CHIPS=1 gives child k `cuda:(k mod cards)`
+    instead (`cards`: cuda_card_count()), and
     FASTP_TPU_SERVERS=sock0,sock1,... routes child k to resident server
-    k mod len (one server per card).  The launcher creates no CUDA context
-    of its own."""
+    k mod len (one server per card).  The launcher imports no torch and
+    creates no CUDA context of its own."""
     import subprocess
     if opt.split.enabled:
         error_exit("--split cannot be combined with --local_processes "
@@ -460,12 +524,11 @@ def _spawn_local_shards(argv, n: int, opt, devices) -> int:
         i += 1
     servers = [s for s in os.environ.get("FASTP_TPU_SERVERS", "").split(",")
                if s]
-    device = devices[0]
-    assign = (device.type == "cuda"
+    assign = (devices[0].startswith("cuda")
               and bool(os.environ.get("FASTP_TPU_ASSIGN_CHIPS")))
-    if len(devices) == 1 and device.type == "cuda" and device.index is None:
-        devices = [torch.device("cuda", 0)]
-    child_request = ",".join(str(d) for d in devices)
+    if devices == ["cuda"]:
+        devices = ["cuda:0"]
+    child_request = ",".join(devices)
     log_dir = os.path.dirname(os.path.abspath(opt.jsonFile)) or "."
     _clear_exchange_files(log_dir)   # of an earlier job that died there
     procs = []
@@ -475,8 +538,7 @@ def _spawn_local_shards(argv, n: int, opt, devices) -> int:
         env["FASTP_TPU_SHARD_INDEX"] = str(k)
         env["FASTP_TPU_SHARD_COUNT"] = str(n)
         env.pop("FASTP_TPU_LOCAL_PROCESSES", None)
-        env[DEVICE_ENV] = ("cuda:%d" % (k % torch.cuda.device_count())
-                           if assign else child_request)
+        env[DEVICE_ENV] = "cuda:%d" % (k % cards) if assign else child_request
         if servers:
             env["FASTP_TPU_SERVER"] = servers[k % len(servers)]
         # shard 0 keeps the console (it prints the merged summary); other
@@ -659,19 +721,21 @@ def run(argv, device=None) -> dict:
     processor's result dict (stats, filter result, and the number of
     batches).  As the launcher of --local_processes it starts the shards
     instead and returns {"rc": their exit code, "local_processes": N}."""
+    t1 = time.time()
+    parsed = parse_options(argv)
+    n_local = local_process_count(parsed[0])
+    if n_local:
+        # before torch (the children import it, each for itself) and the
+        # pre-pass (every shard runs its own), and after the device request
+        # is checked, so that a launcher without a card fails once
+        names, cards = launcher_devices(device)
+        rc = _spawn_local_shards(argv, n_local, parsed[1], names, cards)
+        return {"rc": rc, "local_processes": n_local}
     from .parallel import multihost
     from .parallel.mesh import init_distributed, make_mesh
     from .pipeline.pe_runner import PairEndProcessor
     from .pipeline.runner import SingleEndProcessor
     requested = resolve_devices(device)
-    t1 = time.time()
-    parsed = parse_options(argv)
-    n_local = local_process_count(parsed[0])
-    if n_local:
-        # before the pre-pass, which every shard runs itself, and after
-        # the device is known, so that a launcher without a card fails once
-        rc = _spawn_local_shards(argv, n_local, parsed[1], requested)
-        return {"rc": rc, "local_processes": n_local}
     # the devices of the split, before anything is read or written
     devices = make_mesh(parsed[1].deviceCount, requested)
     opt = prepare_options(argv, parsed)

@@ -75,8 +75,7 @@ def trim_by_sequence(bases, lengths, adapter, match_req: int = 4):
     ppos = pos_iota(B, n_p, dev) + start
     bpad = torch.cat([torch.zeros((B, 4), dtype=torch.uint8, device=dev), bases,
                       torch.zeros((B, alen + 4), dtype=torch.uint8, device=dev)], 1)
-    cmplen = torch.minimum(rlen[:, None] - ppos, torch.tensor(alen, dtype=I32,
-                                                              device=dev))
+    cmplen = (rlen[:, None] - ppos).clamp(max=alen)
     mism = torch.zeros((B, n_p), dtype=I32, device=dev)
     for i in range(alen):
         col = bpad[:, 4 + start + i: 4 + start + i + n_p]

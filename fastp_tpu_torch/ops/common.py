@@ -11,6 +11,8 @@ default int64, unless a wider type is needed for an index.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 A, T, C, G, N = 65, 84, 67, 71, 78  # ASCII codes
@@ -46,12 +48,34 @@ def roll_back(arr, shift):
     return _shift_gather(arr, pos_iota(B, L, arr.device) - f[:, None])
 
 
-def _complement_lut(device):
+_TABLES = {}
+_tables_lock = threading.Lock()
+
+
+def device_table(name: str, device, make):
+    """The constant lookup table `name` on `device`: make() builds it on the
+    host, and it is copied to the device once per process.  A copy from
+    pageable host memory waits for the device, which a CUDA graph's capture
+    may not do: a captured step finds its tables made by the eager warm-up
+    run before the capture (pipeline/device.py:_Graph)."""
+    key = (name, torch.device(device))
+    with _tables_lock:
+        table = _TABLES.get(key)
+        if table is None:
+            table = _TABLES[key] = make().to(device)
+        return table
+
+
+def _complement_table():
     lut = torch.full((256,), N, dtype=torch.uint8)
     for a, b in ((A, T), (T, A), (C, G), (G, C)):
         lut[a] = b
         lut[a + 32] = b  # lowercase maps to the uppercase complement
-    return lut.to(device)
+    return lut
+
+
+def _complement_lut(device):
+    return device_table("complement", device, _complement_table)
 
 
 def complement(bases):
@@ -94,7 +118,7 @@ def last_true_index(mask, default):
 def _as_i32(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(I32)
-    return torch.tensor(x, dtype=I32, device=device)
+    return torch.full((), x, dtype=I32, device=device)
 
 
 def base_slot(bases):
@@ -102,12 +126,17 @@ def base_slot(bases):
     return (bases & 0x07).to(I32)
 
 
-def base2val(bases):
-    """A=0 T=1 C=2 G=3, else -1 (reference: src/stats.cpp:334-347)."""
+def _base2val_table():
     lut = torch.full((256,), -1, dtype=I32)
     for v, b in enumerate((A, T, C, G)):
         lut[b] = v
-    return lut.to(bases.device)[bases.long()]
+    return lut
+
+
+def base2val(bases):
+    """A=0 T=1 C=2 G=3, else -1 (reference: src/stats.cpp:334-347)."""
+    return device_table("base2val", bases.device,
+                        _base2val_table)[bases.long()]
 
 
 def scatter_count(idx, n: int, *weights):

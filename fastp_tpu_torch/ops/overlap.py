@@ -28,7 +28,7 @@ def diff_limit_of(olen, diff_limit: int, diff_pct: float):
     """min(diff_limit, int(float32(max(olen, 0)) * float32(diff_pct))).
 
     The product is taken in float32, as JAX computes it, and truncated."""
-    pct = torch.tensor(diff_pct, dtype=torch.float32, device=olen.device)
+    pct = torch.full((), diff_pct, dtype=torch.float32, device=olen.device)
     lim = (olen.clamp(min=0).to(torch.float32) * pct).to(I32)
     return lim.clamp(max=diff_limit)
 

@@ -20,10 +20,14 @@ note has the argument, the details and the measured times).
 version (ops/overlap.py:sweep_select_plain) only for CPU tensors.  It
 launches on the calling thread's current stream (the batch loop's dispatch
 worker enters the run's side stream) and counts its kernel launches in
-`sweep_select.launches`.
+`sweep_select.launches`.  A step captured as a CUDA graph
+(pipeline/device.py) calls it once while it captures, inside `uncounted()`,
+which tallies those calls for the graph instead; every replay of the graph
+then counts its launches with `count_replayed`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -37,6 +41,39 @@ _fn = None
 
 
 _lock = threading.Lock()
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Calls of sweep_select by this thread inside the block are tallied in
+    the list yielded ([n]) and not counted as launches: a CUDA graph's
+    warm-up runs and its capture, which are no batch."""
+    tally = [0]
+    outer = getattr(_local, "tally", None)
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = outer
+
+
+def _count_launch():
+    """One launch of the kernel: counted, or tallied for the graph that this
+    thread is capturing (see uncounted)."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        tally[0] += 1
+        return
+    with _lock:   # launches come from worker threads
+        sweep_select.launches += 1
+
+
+def count_replayed(n: int):
+    """Count the `n` launches of a CUDA graph's replay."""
+    if n:
+        with _lock:
+            sweep_select.launches += n
 
 
 def _kernel():
@@ -123,8 +160,7 @@ def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
                  overlap_len.data_ptr(), diff.data_ptr(), warps, stream)
     if err != 0:
         raise RuntimeError("overlap_sweep launch failed: CUDA error %d" % err)
-    with _lock:   # launches come from worker threads
-        sweep_select.launches += 1
+    _count_launch()
     return found, offset, overlap_len, diff
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .common import (I32, pos_iota, first_true_index, last_true_index,
-                     reverse_rows, A, T, C, G, N)
+                     reverse_rows, device_table, A, T, C, G, N)
 
 ALLOW_ONE_MISMATCH_FOR_EACH = 8
 MAX_MISMATCH = 5
@@ -69,8 +69,8 @@ def trim_polyx(bases, lengths, compare_req: int):
     # first max wins (strict > updates): the lowest index among the maxima
     best = at_break.amax(1, keepdim=True)
     poly = first_true_index(at_break == best, default=0)
-    poly_ascii = torch.tensor([A, T, C, G], dtype=torch.uint8,
-                              device=dev)[poly.long()]
+    poly_ascii = device_table("atcg", dev, lambda: torch.tensor(
+        [A, T, C, G], dtype=torch.uint8))[poly.long()]
 
     # while(data[rlen-pos-1] != polyBase && pos>=0) pos--
     match = (tail == poly_ascii[:, None]) & (i <= pos_final[:, None]) & in_read

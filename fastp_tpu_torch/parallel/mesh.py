@@ -204,7 +204,13 @@ class ShardedStep:
         """Every shard enters its own device's stream itself."""
         return contextlib.nullcontext()
 
-    def run(self, *args):
+    def run(self, *args, accum: bool = False):
+        """Every shard's upload and device work; a shard runs with its index,
+        so that shards on one device, which share a step, replay graphs of
+        their own and no shard overwrites another's outputs before they are
+        fetched.  The batch's sums are joined on the host (no `accum`)."""
+        if accum:
+            raise ValueError("a split batch's sums are joined on the host")
         n = len(self.steps)
         assert len(args) == self.n_args + 1, (len(args), self.n_args)
         batch = len(args[2])        # the first lengths vector
@@ -218,7 +224,7 @@ class ShardedStep:
             lo = k * rows
             part = [a[lo:lo + rows] for a in args[:-1]]
             part.append(np.int32(min(max(nvalid - lo, 0), rows)))
-            outs.append(step.run(*part))
+            outs.append(step.run(*part, shard=k))
         return outs, rows
 
     def start_fetch(self, run_result) -> ShardedPending:
@@ -236,9 +242,10 @@ class ShardedStep:
 def build_sharded_step(build, cfg, devices: list) -> ShardedStep:
     """Wrap a device step for a split over `devices`.
 
-    build: pipeline/device.py:build_se_step or build_pe_step; it is called
-    once per DISTINCT device (a step uploads its adapters to its device),
-    the PE step with rowwise=True.  Every argument of the step but the last is
+    build: pipeline/device.py:build_se_step or build_pe_step, or either
+    through the memo (memo_step); it is called once per DISTINCT device (a
+    step uploads its adapters to its device), the PE step with
+    rowwise=True.  Every argument of the step but the last is
     batch-major and is cut on its row axis; the last is the count of valid
     rows, of which every shard gets its own."""
     by_device = {}

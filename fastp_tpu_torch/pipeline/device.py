@@ -27,12 +27,26 @@ Inputs arrive plain (uint8 bases and quals) or packed by io/native.py at 8,
 4 or 3 bits per position with an exception list (`packed=`); a packed
 step decodes them first (_unpack_bq, _unpack_nib, _unpack_p3: plain PyTorch,
 as they are plain XLA code in fastp_tpu).
+
+fastp_tpu jits its step once per configuration and keeps it
+(functools.lru_cache on build_se_step and build_pe_step), and a batch is
+one dispatch of that executable.  Here memo_step keeps up to MEMO_ENTRIES
+configurations, each with its StepIO and one step per input scheme, so a
+resident server's later jobs reuse them; and on a card a step is a CUDA
+graph (class _Graph): the first batch of a shape runs the step eagerly and
+captures it -- the decode of the inputs, the step, the batch's sums as one
+vector for the run accumulator, and the narrowing and packing of the rest
+into one buffer -- and every batch after that is one copy up, one replay
+and the copy of the buffer down.  The eager step stays: on the CPU, and on
+a card where the builder is asked for it (graph=False).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -47,8 +61,9 @@ from ..ops import merge as merge_ops
 from ..ops import overlap as overlap_ops
 from ..ops import polyx as polyx_ops
 from ..ops import stats as stats_ops
+from ..ops import overlap_cuda
 from ..ops import trim as trim_ops
-from ..ops.common import I32, roll_front, scatter_count
+from ..ops.common import I32, device_table, roll_front, scatter_count
 
 
 class _FilterCfgView:
@@ -110,7 +125,9 @@ def make_aux(cfg: DeviceCfg, valid_or_n, pre_trim1=None, pre_trim2=None,
 
 def _expand_aux(cfg: DeviceCfg, B: int, aux, up, device):
     """(pre1, pre2, index_drop, dedup_out, valid) tensors from the aux
-    tuple; `up` is the run's upload (StepIO.upload)."""
+    tuple; `up` is the run's upload (StepIO.upload).  The count of valid
+    rows goes up with the other aux arguments and the mask is made on the
+    device, so that a captured step reads each batch's own count."""
     d = dict(zip(aux_arg_names(cfg), aux))
 
     def put(key, dtype):
@@ -120,7 +137,8 @@ def _expand_aux(cfg: DeviceCfg, B: int, aux, up, device):
 
     pre1 = put("pre_trim1" if "pre_trim1" in d else "pre_trim", I32)
     pre2 = put("pre_trim2", I32)
-    valid = torch.arange(B, dtype=I32, device=device) < int(d["nvalid"])
+    valid = (torch.arange(B, dtype=I32, device=device)
+             < up(d["nvalid"], I32).reshape(()))
     return pre1, pre2, put("index_drop", torch.bool), \
         put("dedup_out", torch.bool), valid
 
@@ -491,8 +509,9 @@ def _scatter_exceptions(b, q, idx, base, qual):
 
 
 def _base_lut(device, with_n: bool = False):
-    return torch.tensor([65, 67, 71, 84] + ([78] if with_n else []),
-                        dtype=torch.uint8, device=device)
+    codes = [65, 67, 71, 84] + ([78] if with_n else [])
+    return device_table("acgtn" if with_n else "acgt", device,
+                        lambda: torch.tensor(codes, dtype=torch.uint8))
 
 
 def _mask_pad(b, q, lengths):
@@ -627,15 +646,20 @@ class _StageSlot:
 
 
 class StepIO:
-    """What the steps of one run share on one device: the adapters (uploaded
-    once), and on a card ONE side stream on which every upload, step, pack
-    and fetch of the run is queued, a ring of pinned staging slots for the
-    uploads and a pool of pinned buffers for the fetches.  On the CPU the
-    same calls copy nothing and wait for nothing.
+    """What the steps of one configuration share on one device: the
+    adapters (uploaded once), and on a card ONE side stream on which every
+    upload, step, pack and fetch of a run is queued, a ring of pinned
+    staging slots for the uploads, a pool of pinned buffers for the fetches
+    and the memory pool of the steps' CUDA graphs.  On the CPU the same
+    calls copy nothing and wait for nothing.  A memo entry (memo_step) owns
+    one, and the runs of its configuration use it one after the other.
 
     A staging slot is refilled only after the event behind its batch's last
     copy; a fetch buffer goes back to the pool only after the host has
-    copied its bytes out."""
+    copied its bytes out.  The graphs share one memory pool: they replay on
+    this one stream, one at a time, and each keeps its static inputs and
+    outputs alive, so no graph's replay writes where another's results
+    wait."""
 
     def __init__(self, cfg: DeviceCfg, device):
         self.device = torch.device(device)
@@ -653,7 +677,9 @@ class StepIO:
         self._next = 0
         self._pinned = []
         self._lock = threading.Lock()
+        self.pool = None
         if self.cuda:
+            self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
             # the adapters were copied on the stream current here
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -687,10 +713,11 @@ class StepIO:
                 slot.event = torch.cuda.Event()
             slot.event.record(self.stream)
 
-    def upload(self, x, dtype):
-        """`x` (numpy array or tensor) on the device as `dtype`.  On a card
-        the bytes go through the batch's pinned staging slot in the type the
-        host holds them in, without waiting, and widen on the device."""
+    def upload(self, x, dtype=None):
+        """`x` (numpy array or tensor) on the device as `dtype` (None: the
+        type the host holds it in).  On a card the bytes go through the
+        batch's pinned staging slot in the host's type, without waiting, and
+        widen on the device."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=dtype)
         a = np.ascontiguousarray(x)
@@ -700,7 +727,19 @@ class StepIO:
         host = self._slot.reserve(a.nbytes)
         host.numpy()[:] = a.reshape(-1).view(np.uint8)
         dev = host.to(self.device, non_blocking=True)
-        return dev.view(_NP_TO_TORCH[a.dtype]).reshape(a.shape).to(dtype)
+        return dev.view(_NP_TO_TORCH[a.dtype]).reshape(a.shape).to(
+            dtype=dtype)
+
+    def upload_into(self, buf, offsets, arrays):
+        """A batch's arrays into the device buffer `buf` at `offsets`, as ONE
+        copy from the batch's pinned staging slot (a captured step's static
+        inputs)."""
+        host = self._slot.reserve(buf.numel())
+        flat = host.numpy()
+        for a, off in zip(arrays, offsets):
+            _count("upload", a.nbytes)
+            flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        buf.copy_(host, non_blocking=True)
 
     def take_pinned(self, nbytes: int):
         with self._lock:
@@ -716,35 +755,68 @@ class StepIO:
 
 class StepOut(dict):
     """A step's outputs as tensors on the device, with the batch's padded
-    row count and read width."""
+    row count and read width.  A run with `accum` has taken the batch's
+    sums out of the dict, as one int64 vector (`delta`, taken apart by
+    unpack_acc with `acc_meta`).  `layout` is set where the rest is packed
+    for the host already: the static outputs of a CUDA graph's replay."""
 
     def __init__(self, out=(), rows: int = 0, width: int = 0):
         super().__init__(out)
         self.rows = rows
         self.width = width
+        self.delta = self.acc_meta = None
+        self.layout = None
+
+
+def _take_sums(out: StepOut):
+    """Move the batch's sums (every stats dict and ACC_KEYS leaf) out of
+    `out` into out.delta and out.acc_meta (see acc_delta)."""
+    sums = {k: out.pop(k) for k in list(out)
+            if isinstance(out[k], dict) or k in ACC_KEYS}
+    out.delta, out.acc_meta = acc_delta(sums)
+
+
+def _for_host(out: StepOut, extra_i8) -> StepOut:
+    """The device half of a fetch: the outputs narrowed and packed into one
+    buffer (_slim_outputs, pack_for_host); the result carries the layout
+    and what _take_sums left on `out`."""
+    layout = {}
+    packed = StepOut(pack_for_host(
+        _slim_outputs(dict(out), out.rows, out.width, extra_i8), out.rows,
+        layout, out.width), out.rows, out.width)
+    packed.delta, packed.acc_meta = out.delta, out.acc_meta
+    packed.layout = layout
+    return packed
 
 
 class PendingFetch:
     """A batch's outputs on their way to the host: slimmed, packed into one
     buffer and, on a card, being copied into a pinned buffer behind an
     event.  wait() blocks on that event only -- not on the device, which may
-    already run the next batch's step -- and returns the numpy dict."""
+    already run the next batch's step -- and returns the numpy dict.  The
+    static outputs of a graph's replay are copied here, on the run's stream,
+    so the copy is queued before the graph's next replay."""
 
     def __init__(self, io: StepIO, out: StepOut):
         self.io = io
-        self.layout = {}
         self.event = self.pinned = None
-        packed = pack_for_host(
-            _slim_outputs(dict(out), out.rows, out.width, io.extra_i8),
-            out.rows, self.layout, out.width)
-        self.dev = packed
+        if out.layout is None:
+            out = _for_host(out, io.extra_i8)
+        self.layout = out.layout
+        self.dev = dict(out)
         if self.layout["packed"]:
-            blob = packed["_blob"]
+            blob = self.dev["_blob"]
             self.nbytes = blob.numel()
             _count("fetch", self.nbytes)
             if io.cuda:
                 self.pinned = io.take_pinned(self.nbytes)
                 self.pinned[:self.nbytes].copy_(blob, non_blocking=True)
+        elif io.cuda:
+            # unpacked leaves (FASTP_TPU_NO_PACK) are read by wait(), after
+            # the stream has moved on: copies of their own
+            self.dev = {k: ({dk: dv.clone() for dk, dv in v.items()}
+                            if isinstance(v, dict) else v.clone())
+                        for k, v in self.dev.items()}
         if io.cuda:
             self.event = torch.cuda.Event()
             self.event.record(io.stream)
@@ -777,19 +849,124 @@ class PendingFetch:
         return a
 
 
+# the captures of this process, in order: (key of the graph in its step,
+# seconds of the capture, bytes it added to the card's reserved memory,
+# overlap kernel launches per replay, seconds of the warm-up runs)
+graph_log = []
+GRAPH_WARMUPS = 2     # eager runs of a new shape before its capture
+
+
+class _Graph:
+    """A step captured as a CUDA graph for one shape of its arguments.
+
+    The arguments of a batch lie at fixed offsets of one device buffer (the
+    static inputs: one copy up per batch); the graph holds the whole device
+    side of a batch -- the step on views of that buffer, with `accum` the
+    batch's sums as one vector, and _for_host -- and its static outputs are
+    the packed buffer and that vector.  The eager warm-up runs make what a
+    capture may not (the kernel's library, the ops' lookup tables); their
+    kernel launches and the capture's are not counted, each replay counts
+    the graph's.  A capture that fails raises."""
+
+    def __init__(self, step, arrays, accum: bool, key):
+        io = step.io
+        self.offsets, total = [], 0
+        for a in arrays:
+            self.offsets.append(total)
+            total = -(-(total + a.nbytes) // 64) * 64
+        self.static_in = torch.empty(total, dtype=torch.uint8,
+                                     device=io.device)
+        views = [self.static_in[off:off + a.nbytes]
+                 .view(_NP_TO_TORCH[a.dtype]).reshape(a.shape)
+                 for a, off in zip(arrays, self.offsets)]
+
+        def device_side():
+            out = step._body(*views)
+            if accum:
+                _take_sums(out)
+            return _for_host(out, io.extra_i8)
+
+        self.load(io, arrays)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with overlap_cuda.uncounted() as tally:
+            for _ in range(GRAPH_WARMUPS):
+                device_side()
+            tally[0] = 0
+            t1 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(io.device)
+            self.graph.capture_begin(pool=io.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.out = device_side()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    self.graph.capture_end()   # the first error stands
+                raise
+            self.graph.capture_end()
+        self.sweeps = tally[0]
+        self.pool_bytes = torch.cuda.memory_reserved(io.device) - reserved
+        graph_log.append((key, time.perf_counter() - t1, self.pool_bytes,
+                          self.sweeps, t1 - t0))
+
+    def load(self, io, arrays):
+        with io.staging():
+            io.upload_into(self.static_in, self.offsets, arrays)
+
+
 class Step:
     """A device step in three parts: run(*args) queues the uploads and the
     device work of a batch and returns a StepOut with nothing waited for;
     start_fetch(out) packs such a dict (or what a caller left of it) and
     queues its copy to the host; the PendingFetch's wait() gives the numpy
-    dict.  fetch(out) does the last two at once, step(*args) all three."""
+    dict.  fetch(out) does the last two at once, step(*args) all three.
 
-    def __init__(self, run, io: StepIO):
-        self.run = run
+    `body(*args)` is the device work of a batch on its arguments as tensors
+    on the device, in the types the host gave them.  With `graph` (the
+    default on a card; CUDA only) run() captures the device work once per
+    shape of the arguments, per `accum` and per `shard`, and replays it:
+    every batch's StepOut is then the same static outputs, which the caller
+    reads (adds, copies) on the step's stream before it runs the step
+    again.  Without it run() launches every op from Python."""
+
+    def __init__(self, body, io: StepIO, graph=None):
+        self._body = body
         self.io = io
+        self.graph = io.cuda if graph is None else bool(graph)
+        if self.graph and not io.cuda:
+            raise ValueError("a CUDA graph needs a CUDA device, not %s"
+                             % io.device)
+        self._graphs = {}
+        self.entry = None    # the memo entry that keeps the step
 
     def on_stream(self):
         return self.io.on_stream()
+
+    def run(self, *args, accum: bool = False, shard: int = 0) -> StepOut:
+        """Queue one batch.  With `accum` the batch's sums leave the dict as
+        StepOut.delta; `shard` is the index of a split's shard (shards on
+        one device share a step, and each needs a graph of its own)."""
+        io = self.io
+        with torch.no_grad(), io.on_stream():
+            if not self.graph:
+                with io.staging():
+                    dev = [io.upload(a) for a in args]
+                out = self._body(*dev)
+                if accum:
+                    _take_sums(out)
+                return out
+            # a scalar goes up as one element, as StepIO.upload sends it
+            arrays = [np.ascontiguousarray(a) for a in args]
+            key = (tuple((a.dtype.str, a.shape) for a in arrays), accum,
+                   shard)
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = _Graph(self, arrays, accum, key)
+            else:
+                g.load(io, arrays)
+            g.graph.replay()
+        overlap_cuda.count_replayed(g.sweeps)
+        return g.out
 
     def start_fetch(self, out: StepOut) -> PendingFetch:
         with torch.no_grad(), self.io.on_stream():
@@ -810,13 +987,74 @@ class Step:
         return self.fetch(self.run(*args))
 
 
+# --- the memo: a step per configuration, kept ------------------------------
+
+# the environment variables a step reads while it runs (or is captured): a
+# job that sets one gets a step of its own
+STEP_ENV = ("FASTP_TPU_CORR_K", "FASTP_TPU_CORR_CAP", "FASTP_TPU_NO_SLIM",
+            "FASTP_TPU_NO_PACK")
+MEMO_ENTRIES = 16     # fastp_tpu: functools.lru_cache(maxsize=16)
+_memo = collections.OrderedDict()
+_memo_lock = threading.Lock()
+
+
+class _Entry:
+    """One configuration on one device: its StepIO and its steps, one per
+    input scheme, built at first use."""
+
+    def __init__(self, build, cfg, device, rowwise: bool):
+        self.build, self.cfg, self.rowwise = build, cfg, rowwise
+        self.io = StepIO(cfg, device)
+        self.steps = {}
+        self._lock = threading.Lock()
+
+    def step(self, packed) -> Step:
+        with self._lock:
+            step = self.steps.get(packed)
+            if step is None:
+                kw = {"rowwise": True} if self.rowwise else {}
+                step = self.build(self.cfg, self.io.device, packed=packed,
+                                  io=self.io, **kw)
+                step.entry = self
+                self.steps[packed] = step
+            return step
+
+
+def memo_step(build, cfg: DeviceCfg, device, packed=False,
+              rowwise: bool = False) -> Step:
+    """The Step `build` (build_se_step or build_pe_step) makes for this key,
+    built once and kept: the counterpart of fastp_tpu's lru_cache on its
+    builders.  The key is the builder, `cfg`, the device, `rowwise` and the
+    values of STEP_ENV; `packed` picks the entry's step for that input
+    scheme.  Its steps are graphs on a card (see Step).  At most MEMO_ENTRIES entries are kept, the least
+    recently used goes first.  An entry (its stream, staging ring, pinned
+    buffers, adapters and graphs) serves one run at a time; what belongs to
+    a run -- the accumulator, the learned quality dictionaries, the schemes
+    a run fell out of -- stays on its processor."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (build.__name__, cfg, device, rowwise,
+           tuple(os.environ.get(k) for k in STEP_ENV))
+    with _memo_lock:
+        entry = _memo.get(key)
+        if entry is None:
+            entry = _memo[key] = _Entry(build, cfg, device, rowwise)
+            while len(_memo) > MEMO_ENTRIES:
+                _memo.popitem(last=False)
+        else:
+            _memo.move_to_end(key)
+    return entry.step(packed)
+
+
 def _result_hist(result, counted, weight: int):
     """The counting histogram the host would build over the counted rows."""
     return weight * scatter_count(torch.where(counted, result, 0),
                                   FILTER_RESULT_TYPES, counted)[0]
 
 
-def build_se_step(cfg: DeviceCfg, device, packed=False, io: StepIO = None):
+def build_se_step(cfg: DeviceCfg, device, packed=False, io: StepIO = None,
+                  graph=None):
     """The SE step for `cfg` on `device` ("cuda", "cpu" or a torch.device).
 
     The returned Step takes (bases, quals, lengths, *aux) as numpy arrays
@@ -826,25 +1064,25 @@ def build_se_step(cfg: DeviceCfg, device, packed=False, io: StepIO = None):
     hand-written kernel: the SE path has no overlap analysis.  No output of
     it looks across rows, so the same step serves as a shard of a split.
     `io`: the StepIO of another step of the run, to share its stream,
-    buffers and adapters."""
+    buffers and adapters.  `graph`: see Step (None: a CUDA graph on a card,
+    the eager step on the CPU; False: the eager step on a card too)."""
     io = io or StepIO(cfg, device)
     device, adapters, fasta, upload = io.device, io.adapters, io.fasta, io.upload
     fview = _FilterCfgView(cfg)
 
-    def run(*args):
-        with torch.no_grad(), io.on_stream(), io.staging():
-            if packed:
-                (bases, quals, lengths), aux = _decode_inputs(
-                    packed, 1, args, upload)
-            else:
-                aux = args[3:]
-                bases, quals = (upload(a, torch.uint8) for a in args[:2])
-                lengths = upload(args[2], I32)
-            B, L = bases.shape
-            pre_trim, _, index_drop, dedup_out, valid = _expand_aux(
-                cfg, B, aux, upload, device)
-            return StepOut(se_step(bases, quals, lengths, pre_trim,
-                                   index_drop, dedup_out, valid), B, L)
+    def body(*args):
+        if packed:
+            (bases, quals, lengths), aux = _decode_inputs(
+                packed, 1, args, upload)
+        else:
+            aux = args[3:]
+            bases, quals = (upload(a, torch.uint8) for a in args[:2])
+            lengths = upload(args[2], I32)
+        B, L = bases.shape
+        pre_trim, _, index_drop, dedup_out, valid = _expand_aux(
+            cfg, B, aux, upload, device)
+        return StepOut(se_step(bases, quals, lengths, pre_trim,
+                               index_drop, dedup_out, valid), B, L)
 
     def se_step(bases, quals, lengths, pre_trim, index_drop, dedup_out, valid):
         pre = stats_ops.stat_batch(bases, quals, lengths, valid)
@@ -889,11 +1127,11 @@ def build_se_step(cfg: DeviceCfg, device, packed=False, io: StepIO = None):
                 del out["total_front"]
         return out
 
-    return Step(run, io)
+    return Step(body, io, graph)
 
 
 def build_pe_step(cfg: DeviceCfg, device, rowwise: bool = False,
-                  packed=False, io: StepIO = None):
+                  packed=False, io: StepIO = None, graph=None):
     """The PE step for `cfg` on `device` ("cuda", "cpu" or a torch.device).
 
     The adapter bytes are uploaded once here.  The returned Step takes
@@ -904,22 +1142,21 @@ def build_pe_step(cfg: DeviceCfg, device, rowwise: bool = False,
     come per row (keys c1k_*, c2k_*: up to FASTP_TPU_CORR_K of them, 12
     unless set) and not as the batch's sparse list (keys c1_*, c2_*).
     `io`: the StepIO of another step of the run, to share its stream,
-    buffers and adapters."""
+    buffers and adapters.  `graph`: as for build_se_step."""
     io = io or StepIO(cfg, device)
     device, adapters, fasta, upload = io.device, io.adapters, io.fasta, io.upload
     fview = _FilterCfgView(cfg)
 
-    def run(*args):
-        with torch.no_grad(), io.on_stream(), io.staging():
-            if packed:
-                ins, aux = _decode_inputs(packed, 2, args, upload)
-            else:
-                aux = args[6:]
-                ins = [upload(a, I32 if k % 3 == 2 else torch.uint8)
-                       for k, a in enumerate(args[:6])]
-            B, L = ins[0].shape
-            return StepOut(pe_step(*ins, *_expand_aux(cfg, B, aux, upload,
-                                                      device)), B, L)
+    def body(*args):
+        if packed:
+            ins, aux = _decode_inputs(packed, 2, args, upload)
+        else:
+            aux = args[6:]
+            ins = [upload(a, I32 if k % 3 == 2 else torch.uint8)
+                   for k, a in enumerate(args[:6])]
+        B, L = ins[0].shape
+        return StepOut(pe_step(*ins, *_expand_aux(cfg, B, aux, upload,
+                                                  device)), B, L)
 
     def pe_step(b1, q1, l1, b2, q2, l2, pre_trim1, pre_trim2, index_drop,
                 dedup_out, valid):
@@ -1135,4 +1372,4 @@ def build_pe_step(cfg: DeviceCfg, device, rowwise: bool = False,
                 del out["total_front2"]
         return out
 
-    return Step(run, io)
+    return Step(body, io, graph)

@@ -18,14 +18,17 @@ hashing, packers and serializer release the interpreter lock, as the waits
 for the device do, so those parts overlap; the Python between torch calls
 does not.  BaseProcessor also holds the devices of a split
 (parallel/mesh.py) and the run accumulator: the batch's sums stay on the
-device and come to the host once, at the end of the run.  Pools, streams,
-pinned buffers and the packers' learned dictionaries belong to the
-processor and end with the job.
+device and come to the host once, at the end of the run.  The steps come
+from pipeline/device.py:memo_step, so a resident server's jobs of one
+configuration share them, with their stream, pinned buffers and CUDA
+graphs; the worker pools, the accumulator and the packers' learned
+dictionaries belong to the processor and end with the job.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import os
 import resource
 import sys
@@ -53,8 +56,8 @@ from ..utils.log import loginfo
 from ..utils.readname import first_index, fix_mgi, last_index
 from .static_cfg import device_cfg_from_options
 
-from .device import (ACC_KEYS, acc_delta, build_se_step, length_dtype,
-                     make_aux, unpack_acc)
+from .device import (build_se_step, length_dtype, make_aux, memo_step,
+                     unpack_acc)
 
 
 def _round_width(n: int) -> int:
@@ -382,46 +385,41 @@ class BaseProcessor:
         self.input_kinds = collections.Counter()   # batches per scheme
 
     def _wrap_step(self, build):
-        """The run's step from build_se_step or build_pe_step: on one
-        device the step itself, on several the split of it."""
-        self._build = build
-        self._packed_steps = {}
+        """The run's step from build_se_step or build_pe_step, through the
+        memo (pipeline/device.py:memo_step): on one device the step itself,
+        on several the split of it."""
+        memo = functools.partial(memo_step, build)
         if self.n_dev == 1:
-            return build(self.cfg, self.device)
+            return memo(self.cfg, self.device)
         from ..parallel.mesh import build_sharded_step
-        return build_sharded_step(build, self.cfg, self.devices)
+        return build_sharded_step(memo, self.cfg, self.devices)
 
     def _step_for(self, packed):
-        """The step for inputs packed as `packed` ("p3", "nib", True), built
-        at first use; it shares the plain step's stream, pinned buffers and
-        adapters."""
+        """The step for inputs packed as `packed` ("p3", "nib", True): the
+        plain step's sibling in its memo entry, so it shares its stream,
+        pinned buffers and adapters."""
         if not packed:
             return self.step
-        step = self._packed_steps.get(packed)
-        if step is None:
-            step = self._packed_steps[packed] = self._build(
-                self.cfg, self.device, packed=packed, io=self.step.io)
-        return step
+        return self.step.entry.step(packed)
 
     def _call_step(self, step, args):
         """Queue the step on one batch and start the fetch of its outputs;
         returns the pending fetch.  In accumulate mode the batch's sums
-        leave the output dict before the fetch and are added, as one int64
-        vector, to the resident vector of the batch's width (a wider batch
-        starts a new chain: the per-cycle sums change shape with it).  Runs
-        on the one dispatch worker, so the chain's additions keep their
-        order."""
+        leave the output dict as one int64 vector, which is added to the
+        resident vector of the batch's width (a wider batch starts a new
+        chain: the per-cycle sums change shape with it).  Runs on the one
+        dispatch worker, so the chain's additions keep their order; the
+        addition and the fetch are queued on the step's stream before its
+        next run, which overwrites a graph's outputs."""
         with step.on_stream():
-            dev_out = step.run(*args)
+            dev_out = step.run(*args, accum=self._accum)
             if self._accum:
-                sums = {k: dev_out.pop(k) for k in list(dev_out)
-                        if isinstance(dev_out[k], dict) or k in ACC_KEYS}
-                delta, meta = acc_delta(sums)
                 ent = self._acc_state.get(dev_out.width)
                 if ent is None:
-                    self._acc_state[dev_out.width] = [delta, meta]
+                    self._acc_state[dev_out.width] = [dev_out.delta.clone(),
+                                                      dev_out.acc_meta]
                 else:
-                    ent[0] += delta
+                    ent[0] += dev_out.delta
             return step.start_fetch(dev_out)
 
     def _fold_accs(self):

@@ -17,8 +17,14 @@ CUDA context and launches the overlap kernel once, which builds or loads
 its library; `--warm-run` also runs one representative job with its output
 discarded, which loads the host library, fills the allocator's pool at the
 job's batch shape and commits the pooled Bloom buffers
-(FASTP_TPU_POOL_PREFAULT, set below, read by duplicate.py).  The step is
-built per processor and nothing of it is kept between jobs.
+(FASTP_TPU_POOL_PREFAULT, set below, read by duplicate.py).  The step of
+a configuration is kept between jobs (pipeline/device.py:memo_step, up to
+16 configurations): its stream, pinned buffers, uploaded adapters and, on
+a card, its CUDA graph, so after `--warm-run` a job with the same flags
+(and the same FASTP_TPU_* variables that a step reads) captures nothing
+and replays the warm run's graph.  What belongs to a run -- the
+accumulator, the learned quality dictionaries -- starts from zero in every
+job.
 
 The device of a job is resolved per job, after the client's FASTP_TPU_*
 variables were laid over the server's, so a client's FASTP_TPU_TORCH_DEVICE

@@ -321,3 +321,58 @@ def test_capped_adapter_maps_across_shards_match_fastp_tpu(tmp_path):
     for one, two in zip(counts(whole), counts(sharded)):
         assert sum(one.values()) < sum(two.values())     # the one map capped
         assert set(two) < set(one)       # and so names more sequences
+
+
+# the launcher in a child interpreter that refuses torch to itself only: the
+# children it starts are interpreters of their own, which import torch
+_NO_TORCH_LAUNCHER = """
+import runpy
+import sys
+
+
+class NoTorch:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "torch":
+            raise ImportError("the launcher imported " + name)
+
+
+sys.meta_path.insert(0, NoTorch())
+sys.argv[0] = "fastp_tpu_torch"
+runpy.run_module("fastp_tpu_torch", run_name="__main__")
+"""
+
+
+def test_the_launcher_imports_no_torch(tmp_path):
+    """As fastp_tpu's launcher reaches its shards without importing JAX,
+    the port's reaches them without torch: the children pay its import,
+    the launcher does not pay it before them."""
+    env = dict(os.environ)
+    env["FASTP_TPU_TORCH_DEVICE"] = "cpu"
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_LAUNCHER, "-i", R1, "-I", R2]
+        + PE_OUT + ["--local_processes", "2"], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "the launcher imported" not in res.stderr
+    assert "running on cpu" in res.stderr
+    assert_shards_equal_single(tmp_path, 2, os.path.join(
+        GOLDENS, "cfg2_pe_default"), ("out1.fq", "out2.fq"))
+
+
+@pytest.mark.parametrize("request_,error", [
+    ("meta", "cpu, cuda or cuda:N"), ("cpu,cuda:0", "all cpu or all cuda"),
+    ("cuda", "FASTP_TPU_TORCH_DEVICE"), ("cuda:0,cuda:0", "FASTP_TPU_TORCH_DEVICE")])
+def test_the_launcher_checks_the_request_without_torch(request_, error,
+                                                      monkeypatch):
+    """What resolve_devices refuses, launcher_devices refuses too (no card
+    here)."""
+    from fastp_tpu_torch import cli
+    if cli.cuda_card_count() and "FASTP" in error:
+        pytest.skip("this host has a CUDA device")
+    monkeypatch.setenv("FASTP_TPU_TORCH_DEVICE", request_)
+    with pytest.raises((ValueError, RuntimeError), match=error):
+        cli.launcher_devices()
+    assert cli.launcher_devices("cpu") == (["cpu"], 0)
+    assert cli.launcher_devices(["cpu", "cpu"]) == (["cpu", "cpu"], 0)
