@@ -4,9 +4,10 @@
 
 Phases, in order; each prints one line, and any failure exits non-zero:
   1. device   -- requires CUDA; prints the card's name and power limit
-  2. build    -- builds the overlap kernel from fastp_tpu_torch/csrc (nvcc)
-                 and the host library from fastp_tpu_torch/native (g++), both
-                 at once; prints what ptxas reports for the kernel
+  2. build    -- builds the three kernels from fastp_tpu_torch/csrc
+                 (overlap_sweep, stat_batch, adapter_match: one nvcc each)
+                 and the host library from fastp_tpu_torch/native (g++), all
+                 at once; prints what ptxas reports for each kernel
   3. kernel   -- the CUDA overlap kernel against its plain PyTorch version
                  at B=8192, L=160 on bench-like and adversarial rows
                  (exact) at three overlap settings, diff_pct = 0 (the
@@ -16,21 +17,34 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  byte compares the bench rows need and from them the
                  kernel's bound; CUDA-event timings of the kernel and of the
                  plain version; the bench rows once more launched from a
-                 worker thread on a side stream, as the batch loop does
+                 worker thread on a side stream, as the batch loop does.
+                 Then stat_batch and trim_by_sequence against their plain
+                 versions, bit-equal: the bench reads of both mates, and
+                 adversarial rows (every byte value as a base, qualities
+                 below 33 and at or above 128, lengths 0 and L, include all
+                 false; widths 32, 160, 320 and 1,056, B = 1 and row counts
+                 that are no multiple of a block's rows; adapters of 6, 8,
+                 12, 16, 33 and 80 bases at match_req 4, 5 and 6 on rows
+                 built to reach the insertion and the deletion fallback);
+                 at B=8192, L=160 the kernel's device time per launch from
+                 CUDA-graph replays, one call between two events, the plain
+                 chain captured as a graph the same way, and the bound
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
                  and cfg8 (--failed_out, --overlapped_out): every FASTQ
                  file of each golden and fastp.json
   5. main     -- a 1,000,000-pair PE151 corpus through cli.run with the
-                 bench flags; the kernel must launch once per batch or more;
-                 the run accumulates (the batch's sums stay on the card until
+                 bench flags; each kernel must launch as often as the step
+                 builders say (PER_BATCH: overlap_sweep 1, stat_batch 4,
+                 trim_by_sequence 2 a batch); the run accumulates (the batch's sums stay on the card until
                  the end of the run)
   6. se       -- R1 of that corpus as single-end input with cfg1's flags
-  7. failed   -- the corpus with cfg8's flags; the kernel must launch
-                 exactly twice per batch and every output stream is non-empty
-  8. merge    -- the corpus with cfg5's flags; the kernel must launch
-                 exactly twice per batch (the analysis and the merge
+  7. failed   -- the corpus with cfg8's flags; the overlap kernel must
+                 launch exactly twice per batch and every output stream is
+                 non-empty
+  8. merge    -- the corpus with cfg5's flags; the overlap kernel must
+                 launch exactly twice per batch (the analysis and the merge
                  re-analysis), merged.fq is non-empty and the report's
                  merged_and_filtered section counts reads
   9. cpu      -- the first 20,000 pairs (reads) of phases 5 to 8, of a
@@ -80,11 +94,16 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  card (torch.profiler's cudaLaunchKernel, cudaGraphLaunch
                  and cudaMemcpyAsync), graph and eager, on main, se, failed
                  and merge; every capture with its seconds and the reserved
-                 bytes it added; the TIMING split of the four 1M-pair paths
+                 bytes it added; the TIMING split of the four 1M-pair paths;
+                 the captured step's device time per batch on main, se,
+                 failed, merge and gap (CUDA events around replays) and its
+                 largest device ops by name (one torch.profiler window over
+                 three replays)
  14. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
                  jobs through the thin client (FASTP_TPU_SERVER): three
                  20,000-pair jobs of the main path served and the same job
-                 once as a cold process, their wall times; the main path's
+                 once as a cold process, their wall times (no served job
+                 loads a kernel library); the main path's
                  first 200,000 pairs served, equal to the files of the same
                  prefix run in this script's process; a --merge
                  --dedup job twice, the second equal to the first; `ping`
@@ -123,18 +142,21 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  each exits non-zero and writes nothing (while the self-test's
                  process runs)
 Phases 14 to 19 start the port as a user would, in processes of their own;
-each job there appends the overlap kernel's launches to the file that
-FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just before the phase and read
-just after.  The corpus is written by tools/make_synth.py in a process of
+each job there appends each kernel's launches and the kernel libraries it
+loaded to the file that FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just
+before the phase and read just after (the shards in two servers started
+with --warm load none).  The corpus is written by tools/make_synth.py in a process of
 its own while phases 3 and 4 run.
-Then a JSON line of the walls, one of the seconds each phase took, the card,
-a JSON line of the kernel results and, last, the device line.
+Then a JSON line of the walls, one of the graphs' device times, one of the
+seconds each phase took, the card, a JSON line of the three kernels'
+results and, last, the device line.
 
     python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu]
 
-runs phases 1 to 3 alone; with --old-kernel it also builds an earlier
-version of the kernel's source (same C interface), checks it against the
-plain version and times the two in turns (old, new, new, old).
+runs phases 1 to 3 alone (all three kernels); with --old-kernel it also
+builds an earlier version of the overlap kernel's source (same C
+interface), checks it against the plain version and times the two in turns
+(old, new, new, old).
 
     python3 chip_smoke.py --graph-only
 
@@ -186,11 +208,15 @@ from fastp_tpu_torch import client  # noqa: E402
 from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
 from fastp_tpu_torch.io import native as native_mod  # noqa: E402
-from fastp_tpu_torch.ops import overlap_cuda  # noqa: E402
+from fastp_tpu_torch.ops import adapter_cuda, overlap_cuda, stats_cuda  # noqa: E402
+from fastp_tpu_torch.ops import launches as kernel_launches  # noqa: E402
 from fastp_tpu_torch.parallel import multihost  # noqa: E402
 from fastp_tpu_torch.pipeline import device as step_device  # noqa: E402
+from fastp_tpu_torch.ops.adapter import (  # noqa: E402
+    _match_with_one_insertion_plain, trim_by_sequence_plain)
 from fastp_tpu_torch.ops.overlap import (COMPLETE_COMPARE_REQUIRE,  # noqa: E402
                                          sweep_select_plain)
+from fastp_tpu_torch.ops.stats import stat_batch_plain  # noqa: E402
 
 BENCH_FLAGS = ["--correction", "--cut_right",
                "-a", "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
@@ -243,11 +269,45 @@ CPU_PAIRS = 20_000
 # rows: (B, L), the PE251 width and ragged row counts
 # (the last two are the self-test's: one pair row of 89 and of 56 bases)
 EDGE_SHAPES = ((B + 5, 256), (3, 256), (B + 5, L), (3, L), (1, 89), (1, 56))
-# the card's peaks the bound is reckoned from: HBM3 of the H100 SXM, and byte
-# compares on the integer pipes (132 SMs x 64 INT32 lanes x 4 bytes a 32-bit
-# operation x 1.75 GHz)
+# the card's peaks the bound is reckoned from: HBM3 of the H100 SXM5, and its
+# integer pipes at the SXM5's boost clock (132 SMs x 64 INT32 lanes x
+# 1.98 GHz; a byte compare is a quarter of a 32-bit operation)
+SM_CLOCK_HZ = 1.98e9
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_BYTE_COMPARES_PER_S = 132 * 64 * 4 * 1.75e9
+PEAK_INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+PEAK_BYTE_COMPARES_PER_S = 4 * PEAK_INT32_OPS_PER_S
+# the fewest integer operations stat_batch needs per base of an included
+# read (its slot, quality - 33, the two thresholds, one add of the packed
+# count / q20 / q30 and one of the quality, the quality bin's clamp and
+# count; the totals over slots come from the slot sums at the end) and per
+# 5-mer it counts (the base's value, a rolling key's shift-or and mask,
+# the count)
+STAT_OPS_PER_BASE = 8
+STAT_OPS_PER_KMER = 4
+# stat_batch's further cases on the card: (B, L), widths 32, 160, 320 (the
+# merge width) and 1,056, B = 1 and row counts that are no multiple of a
+# block's chunk
+STAT_SHAPES = ((B + 5, L), (1, L), (B, 32), (1000, 2 * L), (B, 2 * L),
+               (300, 1056), (1, 1056))
+# trim_by_sequence's cases: adapter lengths (6 to 16 random, 33 the bench's
+# R1 adapter, 80 longer than 64) x match_req x (B, L)
+ADAPTER_LENGTHS = (6, 8, 12, 16, 33, 80)
+MATCH_REQS = (4, 5, 6)
+ADAPTER_SHAPES = ((B + 5, L), (1, 32), (1000, 2 * L), (300, 1056))
+BENCH_ADAPTERS = (BENCH_FLAGS[3], BENCH_FLAGS[5])
+# kernel launches per batch of each path, from the step builders
+# (pipeline/device.py): stat_batch before and after the filters per mate
+# (plus the merged reads on merge), trim_by_sequence per explicit or
+# detected adapter and mate (the SE corpus's adapter is detected), the
+# overlap kernel per analysis; a split launches per shard
+PER_BATCH = {
+    "main": {"overlap_sweep": 1, "stat_batch": 4, "trim_by_sequence": 2},
+    "se": {"overlap_sweep": 0, "stat_batch": 2, "trim_by_sequence": 1},
+    "failed": {"overlap_sweep": 2, "stat_batch": 4, "trim_by_sequence": 0},
+    "merge": {"overlap_sweep": 2, "stat_batch": 5, "trim_by_sequence": 0},
+    "gap": {"overlap_sweep": 1, "stat_batch": 4, "trim_by_sequence": 0},
+    "devices_2": {"overlap_sweep": 2, "stat_batch": 8, "trim_by_sequence": 4},
+}
 DEVICE_ENV = cli.DEVICE_ENV
 
 
@@ -307,7 +367,8 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc for the kernel and g++ for the host library, started together."""
+    """nvcc for the three kernels and g++ for the host library, started
+    together."""
     results = {}
 
     def build(key, fn):
@@ -318,8 +379,7 @@ def phase_build():
             results[key] = (exc, time.perf_counter() - t0)
 
     threads = [threading.Thread(target=build, args=(key, fn)) for key, fn in (
-        ("kernel", lambda: cuda_build.load("overlap_sweep")),
-        ("native", native_mod.get_lib))]
+        ("kernels", cuda_build.build_all), ("native", native_mod.get_lib))]
     for t in threads:
         t.start()
     for t in threads:
@@ -329,16 +389,19 @@ def phase_build():
             raise res
     check(results["native"][0] is not None,
           "the host library (fastp_tpu_torch/native) did not build or load")
-    ptxas = [ln.strip() for ln in
-             cuda_build.build_logs.get("overlap_sweep", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print("phase build: overlap_sweep built and loaded in %.3f s (%s), the "
-          "host library in %.3f s (%s); ptxas: %s"
-          % (results["kernel"][1],
-             os.path.relpath(cuda_build.library_path("overlap_sweep"), ROOT),
-             results["native"][1],
+    built = []
+    for name, sec in results["kernels"][0].items():
+        ptxas = [ln.strip() for ln in
+                 cuda_build.build_logs.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        built.append("%s in %.3f s (%s; ptxas: %s)" % (
+            name, sec, os.path.relpath(cuda_build.library_path(name), ROOT),
+            " | ".join(ptxas) or "not built in this process"))
+    print("phase build: at once, all three kernels: %s; the host library in "
+          "%.3f s (%s); all of it %.3f s"
+          % ("; ".join(built), results["native"][1],
              os.path.relpath(native_mod._lib_path(), ROOT),
-             " | ".join(ptxas) or "not built in this process"), flush=True)
+             max(sec for _, sec in results.values())), flush=True)
 
 
 def _bench_rows(rng):
@@ -394,6 +457,95 @@ def _adversarial_rows(rng, B=B, L=L):
         flip = rng.integers(0, L - t, int(rng.integers(0, 8)))
         rc2[r, flip] ^= 1
     return seq1, rc2, len1, len2
+
+
+def stat_rows(rng, B, L):
+    """Arguments of stat_batch that stress its edges: every byte value as a
+    base (with ACGT-rich rows, so that 5-mers count), qualities below 33
+    and at or above 128, lengths 0 and L (and past L), and some reads
+    excluded; bytes past a length are not zeroed.  Returns (bases, quals,
+    lengths int32, include bool) as numpy arrays."""
+    acgt = np.frombuffer(b"ACGTACGTACGTNacgt", np.uint8)
+    bases = rng.choice(acgt, (B, L))
+    wild = rng.random(B) < 0.3
+    bases[wild] = rng.integers(0, 256, (int(wild.sum()), L))
+    if B and L:
+        bases.reshape(-1)[:min(256, B * L)] = np.arange(256)[:min(256, B * L)]
+    quals = rng.integers(33, 75, (B, L)).astype(np.uint8)
+    low = rng.random((B, L)) < 0.1
+    quals[low] = rng.integers(0, 33, int(low.sum()))
+    high = rng.random((B, L)) < 0.05
+    quals[high] = rng.integers(128, 256, int(high.sum()))
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[::7] = L
+    lengths[1::7] = 0
+    lengths[2::11] = L + 3
+    include = rng.random(B) < 0.8
+    return bases.astype(np.uint8), quals, lengths, include
+
+
+def random_adapter(rng, n):
+    return rng.choice(np.frombuffer(b"ACGT", np.uint8), n).astype(np.uint8)
+
+
+def adapter_rows(rng, B, L, adapter):
+    """Reads for trim_by_sequence against `adapter` (uint8): planted with
+    a few mismatches (the Hamming scan), with the adapter's tail at the
+    read's start (negative positions), with one base inserted into or
+    deleted from the adapter at the read's start (the insertion and the
+    deletion fallbacks, which compare from index 0), with the mismatch
+    count at the allowance, random bytes of any value, lengths 0 and L.
+    Returns (bases, lengths int32) as numpy arrays."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = np.asarray(adapter, np.uint8)
+    alen = len(a)
+    bases = rng.choice(acgt, (B, L)).astype(np.uint8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    for r in range(B):
+        kind = r % 9
+        row = bases[r]
+        if kind == 0 and alen:      # planted, a few mismatches
+            p = int(rng.integers(0, max(1, L - 4)))
+            seg = a[:L - p].copy()
+            flips = rng.integers(0, len(seg), int(rng.integers(0, 3)))
+            seg[flips] = rng.choice(acgt, len(flips))
+            row[p:p + len(seg)] = seg
+        elif kind == 1 and alen:    # the adapter's tail at the start
+            k = int(rng.integers(1, 5))
+            seg = a[k:][:L]
+            row[:len(seg)] = seg
+        elif kind in (2, 3) and alen > 2:   # one base in or out
+            if kind == 2:
+                i = int(rng.integers(1, max(2, alen // 2)))
+                seg = np.concatenate([a[:i], rng.choice(acgt, 1), a[i:]])
+            else:
+                # a deletion at 3..10 in a read of 2i..4i bases: too many
+                # mismatches for the Hamming scan at -1 and for the
+                # insertion test, none for the deletion test
+                i = int(rng.integers(3, max(4, min(11, alen // 2))))
+                seg = np.concatenate([a[:i], a[i + 1:]])
+            if rng.random() < 0.3:  # a mismatch near the end: a shorter match
+                seg = seg.copy()
+                seg[-1 - int(rng.integers(0, 3))] ^= 2
+            seg = seg[:L]
+            row[:len(seg)] = seg
+            if kind == 2:
+                lengths[r] = min(L, len(seg) + int(rng.integers(-3, 20)))
+            else:
+                lengths[r] = min(L, max(9, int(rng.integers(2 * i, 4 * i + 1))))
+        elif kind == 4:             # any byte value
+            row[:] = rng.integers(0, 256, L)
+        elif kind == 5:
+            lengths[r] = (0, L, 1, 3, 7)[r % 5]
+        elif kind == 6 and alen:    # mismatches at and past the allowance
+            p = int(rng.integers(0, max(1, L - alen)))
+            seg = a[:L - p].copy()
+            extra = len(seg) // 8 + int(rng.integers(0, 2))
+            flips = rng.choice(len(seg), min(extra, len(seg)), replace=False)
+            seg[flips] = (seg[flips] + 1) % 251 + 1
+            row[p:p + len(seg)] = seg
+            lengths[r] = max(lengths[r], min(L, p + len(seg)))
+    return bases, lengths
 
 
 def _median_ms(fn, runs=25):
@@ -582,10 +734,10 @@ def phase_kernel(old_source=None):
             # side stream
             torch.cuda.synchronize()
             for setting in TIMED_SETTINGS:
-                counted = overlap_cuda.sweep_select.launches
+                counted = kernel_launches.snapshot()
                 got = _on_worker_stream(
                     lambda: overlap_cuda.sweep_select(*tensors, *setting))
-                check(overlap_cuda.sweep_select.launches == counted + 1,
+                check(kernel_launches.since(counted)["overlap_sweep"] == 1,
                       "a launch from a worker thread was not counted once")
                 worst = max(worst, _same_as_plain(
                     got, wants[setting], "%s at %s from a worker thread on "
@@ -628,7 +780,302 @@ def phase_kernel(old_source=None):
                  PEAK_BYTE_COMPARES_PER_S / 1e12,
                  100.0 * bounds[pct]["bound_ms"] / t["ms"])
               for pct, t in timing.items())), flush=True)
-    return worst, timing, bounds
+    return worst, timing, bounds, {"stat_batch": kernel_stats(rng),
+                                   "trim_by_sequence": kernel_adapter(rng)}
+
+
+def _bench_reads(rng):
+    """The main path's reads at B x L: tools/make_synth.py's pairs (the
+    bench corpus's generator), R1 and R2 with their qualities, 151 bases
+    padded to L, a fifth of them trimmed shorter, zero past each length.
+    Returns [(bases, quals, lengths)] for R1 and R2, as numpy arrays."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import make_synth
+    from types import SimpleNamespace
+    args = SimpleNamespace(short_insert_rate=0.25, qual_bins="nova4",
+                           n_rate=0.002, polyg_rate=0.08, dup_rate=0.05)
+    r1, r2, q1, q2 = make_synth._gen_chunk(rng, B, 151, args)
+    out = []
+    for r, q in ((r1, q1), (r2, q2)):
+        bases = np.zeros((B, L), np.uint8)
+        quals = np.zeros((B, L), np.uint8)
+        bases[:, :151], quals[:, :151] = r, q
+        lens = np.where(rng.random(B) < 0.2, rng.integers(0, 152, B),
+                        151).astype(np.int32)
+        past = np.arange(L)[None, :] >= lens[:, None]
+        bases[past] = 0
+        quals[past] = 0
+        out.append((bases, quals, lens))
+    return out
+
+
+def _max_abs_err(got, want, what):
+    """Largest absolute difference over outputs of equal keys, dtypes and
+    shapes (dicts or tuples of tensors); fails unless it is 0."""
+    items = (got.items() if isinstance(got, dict)
+             else enumerate(got))
+    worst = 0
+    for key, g in items:
+        w = want[key]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              "kernel %s/%s: %s %s, plain %s %s"
+              % (what, key, g.dtype, tuple(g.shape), w.dtype, tuple(w.shape)))
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) \
+            if g.numel() else 0
+        worst = max(worst, err)
+        check(err == 0, "kernel %s/%s differs from plain (max abs err %d)"
+              % (what, key, err))
+    if isinstance(got, dict):
+        check(set(got) == set(want), "kernel %s: keys %s against %s"
+              % (what, sorted(got), sorted(want)))
+    return worst
+
+
+def stat_bound(args, want):
+    """The least time the card could take for stat_batch on these inputs:
+    the larger of its bytes (bases, quals, int32 lengths, the include mask,
+    the int64 outputs) over the memory rate and the integer operations the
+    included bases and counted 5-mers need over the integer rate."""
+    bases, quals, lengths, include = args
+    Bn, Ln = bases.shape
+    nbytes = 2 * Bn * Ln + 5 * Bn + 8 * stats_cuda.out_size(Ln)
+    in_read = int(want["cycle_total_base"].sum())
+    kmers = int(want["kmer"].sum())
+    ops = STAT_OPS_PER_BASE * in_read + STAT_OPS_PER_KMER * kmers
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bases_counted": in_read, "kmers_counted": kmers,
+            "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _time_three(kernel, plain):
+    """Device ms a launch from CUDA-graph replays, one call between two
+    events, and the plain chain captured as a graph the same way (what the
+    parent's step spent on this work) and eager."""
+    return {"ms": _graph_ms(kernel), "call_ms": _median_ms(kernel),
+            "plain_ms": _graph_ms(plain, launches=5),
+            "plain_eager_ms": _median_ms(plain, runs=10)}
+
+
+def kernel_stats(rng):
+    """csrc/stat_batch.cu against stat_batch_plain on the card, bit-equal:
+    the bench reads of both mates, then stat_rows at (B, L) and at
+    STAT_SHAPES, each with its include mask and with none; B = 0 launches
+    nothing.  Times the kernel at the main path's shape."""
+    cases, worst = [], 0
+    bench = _bench_reads(rng)
+    for mate, (bases, quals, lens) in enumerate(bench):
+        include = rng.random(B) < 0.9
+        cases.append(("bench R%d" % (mate + 1), (bases, quals, lens, include)))
+    for rows_n, width in ((B, L),) + STAT_SHAPES:
+        b, q, ln, inc = stat_rows(rng, rows_n, width)
+        cases.append(("adversarial B=%d L=%d" % (rows_n, width),
+                      (b, q, ln, inc)))
+        cases.append(("adversarial B=%d L=%d, include all false"
+                      % (rows_n, width), (b, q, ln, np.zeros_like(inc))))
+    counted = kernel_launches.snapshot()
+    timing = bound = None
+    for what, arrays in cases:
+        args = tuple(torch.from_numpy(x).cuda() for x in arrays)
+        got = stats_cuda.stat_batch_cuda(*args)
+        torch.cuda.synchronize()
+        want = stat_batch_plain(*args)
+        worst = max(worst, _max_abs_err(got, want, "stat_batch " + what))
+        if timing is None:
+            bound = stat_bound(args, want)
+            timing = _time_three(lambda: stats_cuda.stat_batch_cuda(*args),
+                                 lambda: stat_batch_plain(*args))
+            counted = kernel_launches.snapshot()
+    check(kernel_launches.since(counted)["stat_batch"] == len(cases) - 1,
+          "stat_batch launches: %s for %d calls"
+          % (kernel_launches.since(counted), len(cases) - 1))
+    empty = torch.zeros((0, L), dtype=torch.uint8, device="cuda")
+    counted = kernel_launches.snapshot()
+    got = stats_cuda.stat_batch_cuda(empty, empty, torch.zeros(
+        0, dtype=torch.int32, device="cuda"), torch.zeros(
+        0, dtype=torch.bool, device="cuda"))
+    check(kernel_launches.since(counted)["stat_batch"] == 0
+          and all(int(v.abs().sum()) == 0 for v in got.values()),
+          "stat_batch at B = 0 launched or returned non-zero sums")
+    print("phase kernel: stat_batch == plain, bit-equal on every key, %d "
+          "cases (%s), max abs err %d; B=0 launches nothing; B=%d L=%d "
+          "(bench R1): kernel %.4f ms of device time per launch (CUDA-graph "
+          "replays of 20 launches), %.4f ms for one call between two events, "
+          "plain chain %.4f ms as a graph (%.4f ms eager); %d bytes, %d "
+          "bases and %d 5-mers counted, %d integer operations, so bound "
+          "%.5f ms by %s (bytes %.5f ms, operations %.5f ms at %.2f T/s), "
+          "kernel at %.1f%% of it"
+          % (len(cases), ", ".join(w for w, _ in cases), worst, B, L,
+             timing["ms"], timing["call_ms"], timing["plain_ms"],
+             timing["plain_eager_ms"], bound["bytes"], bound["bases_counted"],
+             bound["kmers_counted"], bound["operations"], bound["bound_ms"],
+             bound["bound_by"], bound["bytes_ms"], bound["operations_ms"],
+             PEAK_INT32_OPS_PER_S / 1e12,
+             100.0 * bound["bound_ms"] / timing["ms"]), flush=True)
+    return {"max_abs_err": worst, "timing": timing, "bound": bound,
+            "cases": len(cases)}
+
+
+def adapter_compares(bases, lengths, adapter, match_req):
+    """Byte compares trim_by_sequence needs on these reads, reckoned on the
+    card: the Hamming walk over the start positions up to the first match
+    (all of them for a read without one), each position decided at the
+    compare that takes its mismatches past the allowance, or after all of
+    them when it matches; then, for a read without a Hamming match, the
+    insertion fallback's candidate lengths from the top down to the first
+    match, and the deletion fallback's when the insertion gave no valid
+    position, cmplen compares each (the count of the shifted mismatches
+    that each test starts from).  Returns the count."""
+    Bn, Ln = bases.shape
+    a = adapter.to(torch.int64)
+    alen = a.shape[0]
+    if alen < match_req or Bn == 0:
+        return 0
+    start = -4 if alen >= 16 else -3 if alen >= 12 else -2 if alen >= 8 else 0
+    dev = bases.device
+    rlen = lengths.to(torch.int64)
+    p = torch.arange(start, Ln - match_req, device=dev)
+    i = torch.arange(alen, device=dev)
+    j = p[:, None] + i[None, :]                           # [P, alen]
+    padded = torch.nn.functional.pad(bases.to(torch.int64), (4, alen + 4))
+    byte = padded[:, (j + 4).clamp(min=0)]                # [B, P, alen]
+    cmplen = torch.minimum(rlen[:, None] - p[None, :],
+                           torch.full_like(rlen[:, None], alen))
+    valid = (j >= 0)[None] & (i[None, None, :] < cmplen[..., None])
+    mm = ((byte != a) & valid).cumsum(-1)
+    allowed = torch.div(cmplen, 8, rounding_mode="floor")
+    over = mm > allowed[..., None]
+    first_over = torch.where(over.any(-1), over.to(torch.int8).argmax(-1),
+                             alen)
+    lead = (-p).clamp(min=0)[None, :]                     # positions before 0
+    decided = torch.where(over.any(-1), first_over + 1 - lead,
+                          valid.sum(-1)).clamp(min=0)
+    active = p[None, :] < (torch.minimum(rlen, torch.full_like(rlen, Ln))
+                           - match_req)[:, None]
+    matched = active & ~over.any(-1) & (allowed >= 0)
+    first = torch.where(matched.any(1), matched.to(torch.int8).argmax(1),
+                        p.shape[0])
+    walked = active & (torch.arange(p.shape[0], device=dev)[None, :]
+                       <= first[:, None])
+    total = int((decided * walked).sum())
+    rest = ~matched.any(1)
+    # the fallbacks: each candidate length's table, as the plain version
+    # makes it, for the reads without a Hamming match
+    Wd = alen + 1
+    a_b = torch.cat([adapter, adapter.new_zeros(1)]).expand(Bn, Wd)
+    b_cut = (bases[:, :Wd] if Ln >= Wd else torch.cat(
+        [bases, bases.new_zeros((Bn, Wd - Ln))], 1))
+    if alen < 8:
+        return total                   # no length has a limit of 0 or more
+    lens = torch.arange(8, alen + 1, device=dev)
+    for insertion in (True, False):
+        top = (torch.minimum(rlen - 1, torch.full_like(rlen, alen)) if insertion
+               else torch.minimum(rlen, torch.full_like(rlen, alen - 1)))
+        m = torch.stack([
+            _match_with_one_insertion_plain(b_cut, a_b, cl, cl // 8 - 1)
+            if insertion else
+            (_match_with_one_insertion_plain(a_b, b_cut, cl, cl // 8 - 1)
+             if cl <= alen - 1 else torch.zeros(Bn, dtype=torch.bool,
+                                                device=dev))
+            for cl in lens.tolist()], 1)                  # [B, n]
+        ok = m & (lens[None, :] <= top[:, None])
+        best = torch.where(ok.any(1), (ok * lens[None, :]).amax(1), 7)
+        tested = (lens[None, :] <= top[:, None]) & (lens[None, :] >= best[:, None])
+        total += int((tested * lens[None, :])[rest].sum())
+        pos = torch.where(best == top, 0, rlen - best - (1 if insertion else 0))
+        limit = rlen - match_req - (1 if insertion else 0)
+        good = ok.any(1) & (pos >= 0) & (pos < limit) & (limit > 0)
+        rest = rest & ~good
+    return total
+
+
+def adapter_bound(rows, lens, adapter, match_req, want):
+    """The least time the card could take for trim_by_sequence on these
+    reads: the larger of its bytes (bases, int32 lengths, the adapter and
+    the outputs) over the memory rate and the byte compares it needs
+    (adapter_compares) over the integer pipes' byte-compare rate."""
+    Bn, Ln = rows.shape
+    nbytes = Bn * Ln + 4 * Bn + int(adapter.shape[0]) + 9 * Bn
+    compares = adapter_compares(rows, lens, adapter, match_req)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = compares / PEAK_BYTE_COMPARES_PER_S * 1e3
+    return {"bytes": nbytes, "compares_needed": compares,
+            "found": int(want[1].sum()), "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def kernel_adapter(rng):
+    """csrc/adapter_match.cu against trim_by_sequence_plain on the card,
+    bit-equal: the bench reads of each mate with its bench adapter, then
+    adapter_rows for adapters of ADAPTER_LENGTHS bases at MATCH_REQS and
+    ADAPTER_SHAPES; a short adapter launches nothing.  Times the kernel on
+    the bench reads, both adapters."""
+    worst, n_cases = 0, 0
+    timing, bounds = {}, {}
+    counted = kernel_launches.snapshot()
+    for mate, (bases, _, lens) in enumerate(_bench_reads(rng)):
+        rows = torch.from_numpy(bases).cuda()
+        rl = torch.from_numpy(lens).cuda()
+        ad = torch.frombuffer(bytearray(BENCH_ADAPTERS[mate].encode()),
+                              dtype=torch.uint8).cuda()
+        got = adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, 4)
+        torch.cuda.synchronize()
+        want = trim_by_sequence_plain(rows, rl, ad, 4)
+        worst = max(worst, _max_abs_err(got, want, "trim_by_sequence bench "
+                                        "R%d" % (mate + 1)))
+        n_cases += 1
+        bounds[mate] = adapter_bound(rows, rl, ad, 4, want)
+        before = kernel_launches.snapshot()
+        timing[mate] = _time_three(
+            lambda: adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, 4),
+            lambda: trim_by_sequence_plain(rows, rl, ad, 4))
+        counted = {k: v + kernel_launches.since(before)[k]
+                   for k, v in counted.items()}
+    for alen in ADAPTER_LENGTHS:
+        a = (np.frombuffer(BENCH_ADAPTERS[0].encode(), np.uint8)
+             if alen == 33 else random_adapter(rng, alen))
+        ad = torch.from_numpy(a.copy()).cuda()
+        for rows_n, width in ADAPTER_SHAPES:
+            bases, lens = adapter_rows(rng, rows_n, width, a)
+            rows = torch.from_numpy(bases).cuda()
+            rl = torch.from_numpy(lens).cuda()
+            for req in MATCH_REQS:
+                got = adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, req)
+                torch.cuda.synchronize()
+                want = trim_by_sequence_plain(rows, rl, ad, req)
+                worst = max(worst, _max_abs_err(
+                    got, want, "trim_by_sequence alen=%d match_req=%d B=%d "
+                    "L=%d" % (alen, req, rows_n, width)))
+                n_cases += 1
+    short = sum(1 for alen in ADAPTER_LENGTHS for req in MATCH_REQS
+                if alen < req) * len(ADAPTER_SHAPES)
+    check(kernel_launches.since(counted)["trim_by_sequence"] == n_cases - short,
+          "trim_by_sequence launches: %s for %d calls, %d with an adapter "
+          "shorter than match_req" % (kernel_launches.since(counted), n_cases,
+                                      short))
+    ms = {k: float(np.mean([timing[m][k] for m in timing]))
+          for k in timing[0]}
+    bound_ms = float(np.mean([bounds[m]["bound_ms"] for m in bounds]))
+    print("phase kernel: trim_by_sequence == plain, bit-equal, %d cases (the "
+          "bench reads of both mates; adapters of %s bases at match_req %s on "
+          "B x L %s, rows built to reach the insertion and the deletion "
+          "fallback), max abs err %d; B=%d L=%d (bench R1, R2 with their "
+          "adapters): kernel %s ms of device time per launch (CUDA-graph "
+          "replays of 20 launches), %s ms for one call between two events, "
+          "plain chain %s ms as a graph (%s ms eager); bounds %s"
+          % (n_cases, ADAPTER_LENGTHS, MATCH_REQS, ADAPTER_SHAPES, worst, B,
+             L, ", ".join("%.4f" % timing[m]["ms"] for m in timing),
+             ", ".join("%.4f" % timing[m]["call_ms"] for m in timing),
+             ", ".join("%.4f" % timing[m]["plain_ms"] for m in timing),
+             ", ".join("%.4f" % timing[m]["plain_eager_ms"] for m in timing),
+             json.dumps(bounds)), flush=True)
+    return {"max_abs_err": worst, "timing": ms, "per_mate": timing,
+            "bounds": bounds, "bound": {
+                "bound_ms": bound_ms,
+                "bound_by": bounds[0]["bound_by"]}, "cases": n_cases}
 
 
 def phase_golden(work):
@@ -709,7 +1156,7 @@ def _run_in_process(argv, cwd, device="cuda", **env):
 TIMING_LINES = {}
 # directory of a run in this process -> the graphs it captured
 # (pipeline/device.py:graph_log's entries: key, seconds, reserved bytes
-# added, launches per replay, warm-up seconds)
+# added, {kernel: launches per replay}, warm-up seconds)
 CAPTURES = {}
 TIMING_ON = {"FASTP_TPU_TIMING": "1"}
 
@@ -717,22 +1164,34 @@ TIMING_ON = {"FASTP_TPU_TIMING": "1"}
 def _drive(work, name, args, device="cuda", says="running on cuda", **env):
     """One path through cli.run on the card, with the kernel counts set to
     0 just before and read just after.  Returns (result, run directory,
-    wall seconds, overlap kernel launches)."""
+    wall seconds, {kernel: launches})."""
     d = os.path.join(work, name)
     os.makedirs(d)
-    overlap_cuda.sweep_select.launches = 0
+    kernel_launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, log = _run_in_process(["fastp_tpu_torch", *args], d, device, **env)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = overlap_cuda.sweep_select.launches
+    launches = kernel_launches.snapshot()
     check(says in log, "%s run log does not say \"%s\":\n%s"
           % (name, says, log[:400]))
     timing = [ln for ln in log.splitlines() if ln.startswith("TIMING ")]
     if timing:
         TIMING_LINES[name] = timing
     return res, d, wall, launches
+
+
+def _check_per_batch(what, got, batches, per_batch, shards=1):
+    """Each kernel launched exactly per_batch[kernel] times a batch and
+    shard in a run."""
+    want = {k: v * batches * shards for k, v in per_batch.items()}
+    check(got == want, "%s: kernel launches %s for %d batches, want %s"
+          % (what, got, batches, want))
+
+
+def _fmt(launches):
+    return ", ".join("%s %d" % kv for kv in launches.items())
 
 
 def _nonempty_outputs(d, what):
@@ -755,15 +1214,16 @@ def phase_main(work, r1, r2):
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "main run read %d pairs" % reads)
-    check(launches == batches == MAIN_BATCHES,
-          "overlap kernel launched %d times for %d batches" % (launches, batches))
+    check(batches == MAIN_BATCHES, "main run: %d batches" % batches)
+    _check_per_batch("main", launches, batches, PER_BATCH["main"])
     _nonempty_outputs(d, "main")
     after = _reads_after(d)
     check(0 < after <= 2 * MAIN_PAIRS, "main run kept %d reads" % after)
     print("phase main: %d pairs (bench flags, --batch_size 8192) in %.3f s "
-          "wall = %.0f pairs/s; %d batches, %d overlap kernel launches; "
+          "wall = %.0f pairs/s; %d batches, kernel launches %s; "
           "%d reads after filtering"
-          % (reads, wall, reads / wall, batches, launches, after), flush=True)
+          % (reads, wall, reads / wall, batches, _fmt(launches), after),
+          flush=True)
     return launches, wall
 
 
@@ -772,14 +1232,16 @@ def phase_se(work, r1):
                                     **TIMING_ON)
     reads = res["pre"].reads
     check(reads == MAIN_PAIRS, "se run read %d reads" % reads)
-    check(launches == 0, "the SE path launched the overlap kernel")
+    check(res["batches"] == MAIN_BATCHES, "se run: %d batches" % res["batches"])
+    _check_per_batch("se", launches, res["batches"], PER_BATCH["se"])
     _nonempty_outputs(d, "se")
     after = _reads_after(d)
     check(0 < after <= MAIN_PAIRS, "se run kept %d reads" % after)
     print("phase se: %d single-end reads (cfg1 flags: adapter detection, "
           "quality and length filters) in %.3f s wall = %.0f reads/s; "
-          "%d batches, %d reads after filtering"
-          % (reads, wall, reads / wall, res["batches"], after), flush=True)
+          "%d batches, kernel launches %s; %d reads after filtering"
+          % (reads, wall, reads / wall, res["batches"], _fmt(launches), after),
+          flush=True)
     return launches
 
 
@@ -790,17 +1252,16 @@ def phase_failed(work, r1, r2):
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "failed run read %d pairs" % reads)
-    check(launches == 2 * batches == 2 * MAIN_BATCHES,
-          "overlap kernel launched %d times for %d batches (want twice per "
-          "batch: the analysis and the --overlapped_out re-analysis)"
-          % (launches, batches))
+    # the overlap kernel twice a batch: the analysis and the
+    # --overlapped_out re-analysis
+    check(batches == MAIN_BATCHES, "failed run: %d batches" % batches)
+    _check_per_batch("failed", launches, batches, PER_BATCH["failed"])
     files = _nonempty_outputs(d, "failed")
     check(files == ["failed.fq", "o1.fq", "o2.fq", "ov.fq", "up1.fq"],
           "failed run wrote %s" % files)
     print("phase failed: %d pairs (cfg8 flags) in %.3f s wall = %.0f pairs/s; "
-          "%d batches, %d overlap kernel launches (%.2f per batch); every "
-          "stream non-empty: %s"
-          % (reads, wall, reads / wall, batches, launches, launches / batches,
+          "%d batches, kernel launches %s; every stream non-empty: %s"
+          % (reads, wall, reads / wall, batches, _fmt(launches),
              ", ".join("%s %d B" % (f, os.path.getsize(os.path.join(d, f)))
                        for f in files)), flush=True)
     return launches
@@ -813,9 +1274,10 @@ def phase_merge(work, r1, r2):
     batches = res["batches"]
     reads = res["pre1"].reads
     check(reads == MAIN_PAIRS, "merge run read %d pairs" % reads)
-    check(launches == 2 * batches == 2 * MAIN_BATCHES,
-          "overlap kernel launched %d times for %d batches (want twice per "
-          "batch: the analysis and the merge re-analysis)" % (launches, batches))
+    # the overlap kernel twice a batch (the analysis and the merge
+    # re-analysis), stat_batch once more for the merged reads
+    check(batches == MAIN_BATCHES, "merge run: %d batches" % batches)
+    _check_per_batch("merge", launches, batches, PER_BATCH["merge"])
     files = _nonempty_outputs(d, "merge")
     check("merged.fq" in files, "merge run wrote %s" % files)
     with open(os.path.join(d, "fastp.json")) as fh:
@@ -824,9 +1286,9 @@ def phase_merge(work, r1, r2):
     check(0 < merged_pairs <= merged, "merge run merged %d pairs, reported "
           "%d merged-and-filtered reads" % (merged_pairs, merged))
     print("phase merge: %d pairs (cfg5 flags) in %.3f s wall = %.0f pairs/s; "
-          "%d batches, %d overlap kernel launches (%.2f per batch); %d pairs "
-          "merged, %d reads in merged_and_filtered; %s"
-          % (reads, wall, reads / wall, batches, launches, launches / batches,
+          "%d batches, kernel launches %s; %d pairs merged, %d reads in "
+          "merged_and_filtered; %s"
+          % (reads, wall, reads / wall, batches, _fmt(launches),
              merged_pairs, merged,
              ", ".join("%s %d B" % (f, os.path.getsize(os.path.join(d, f)))
                        for f in files)), flush=True)
@@ -848,7 +1310,7 @@ def phase_cpu(work, r1, r2):
     with the output in a file; the others run in this process, which counts
     their kernel launches and times them (before the CPU runs start, so
     that they do not compete for the host's cores).  Returns {path:
-    (launches, card wall seconds)} of the in-process runs."""
+    ({kernel: launches}, card wall seconds)} of the in-process runs."""
     prefix = ["--reads_to_process", str(CPU_PAIRS)]
     fasta = os.path.join(work, "adapters.fa")
     with open(fasta, "w") as fh:
@@ -892,15 +1354,17 @@ def phase_cpu(work, r1, r2):
         if name in to_stdout:
             finish(name, start(name, gpu_dir), "cuda")
             continue
-        overlap_cuda.sweep_select.launches = 0
+        kernel_launches.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, log = _run_in_process(["fastp_tpu_torch", *paths[name], *prefix],
-                                 gpu_dir)
+        res, log = _run_in_process(["fastp_tpu_torch", *paths[name], *prefix],
+                                   gpu_dir)
         torch.cuda.synchronize()
-        card[name] = (overlap_cuda.sweep_select.launches,
-                      time.perf_counter() - t0)
+        card[name] = (kernel_launches.snapshot(), time.perf_counter() - t0)
         check("running on cuda" in log, "card run %s did not use CUDA" % name)
+        if name in PER_BATCH:
+            _check_per_batch("%d pairs, %s" % (CPU_PAIRS, name), card[name][0],
+                             res["batches"], PER_BATCH[name])
     procs = {}
     for name in paths:
         cpu_dir = os.path.join(work, "cmp_cpu_" + name)
@@ -920,11 +1384,11 @@ def phase_cpu(work, r1, r2):
         compared.append("%s (%s)" % (name, ", ".join(files)))
     refused = _run_without_card(work, paths["main"] + prefix)
     print("phase cpu: the first %d pairs (reads) give identical files on the "
-          "card and on the CPU (%s=cpu): %s; card wall and overlap kernel "
-          "launches: %s; with the card hidden and no request for the CPU the "
-          "port exits %d and writes nothing"
+          "card and on the CPU (%s=cpu): %s; card wall and kernel launches: "
+          "%s; with the card hidden and no request for the CPU the port exits "
+          "%d and writes nothing"
           % (CPU_PAIRS, DEVICE_ENV, "; ".join(compared), "; ".join(
-              "%s %.3f s, %d" % (name, wall, n)
+              "%s %.3f s, %s" % (name, wall, _fmt(n))
               for name, (n, wall) in card.items()), refused), flush=True)
     return card
 
@@ -968,45 +1432,45 @@ def phase_devices(work, r1, r2, main_wall):
     res, d, wall, launches = _drive(
         work, "devices2", main + ["--devices", "2"], device=_one_card(2),
         says="running on 2 shards of every batch: cuda:0")
-    check(res["batches"] == MAIN_BATCHES and launches == 2 * MAIN_BATCHES,
-          "--devices 2: %d overlap kernel launches for %d batches (want one "
-          "per shard)" % (launches, res["batches"]))
+    check(res["batches"] == MAIN_BATCHES, "--devices 2: %d batches"
+          % res["batches"])
+    _check_per_batch("--devices 2", launches, res["batches"],
+                     PER_BATCH["devices_2"])
     same_outputs(d, os.path.join(work, "main"), "--devices 2 vs phase main")
     out = {"devices_2": launches}
     prefix = ["--reads_to_process", str(CPU_PAIRS)]
     short = {
-        # name: (arguments, shards, launches per batch and shard, phase
-        # cpu's one-device run on the card, environment)
-        "se": (["-i", r1, "-o", "out.fq"], 2, 0, "se", {}),
-        "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], 2, 2,
+        # name: (arguments, shards, phase cpu's one-device run on the card,
+        # whose launches each shard makes, environment)
+        "se": (["-i", r1, "-o", "out.fq"], 2, "se", {}),
+        "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], 2,
                    "failed", {}),
-        "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS], 2, 2,
+        "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS], 2,
                   "merge", {}),
-        "main_3": (main, 3, 1, "main", {}),
-        "main_corr_k_1": (main, 2, 1, "main", {"FASTP_TPU_CORR_K": "1"}),
+        "main_3": (main, 3, "main", {}),
+        "main_corr_k_1": (main, 2, "main", {"FASTP_TPU_CORR_K": "1"}),
     }
     walls = []
-    for name, (args, n, per_batch, one, env) in short.items():
-        _, sd, swall, n_launch = _drive(
+    for name, (args, n, one, env) in short.items():
+        sres, sd, swall, n_launch = _drive(
             work, "devices_" + name, args + prefix + ["--devices", str(n)],
             device=_one_card(n),
             says="running on %d shards of every batch" % n, **env)
-        check(n_launch == n * per_batch * CPU_BATCHES,
-              "--devices %d, %s: %d overlap kernel launches for %d batches"
-              % (n, name, n_launch, CPU_BATCHES))
+        _check_per_batch("--devices %d, %s" % (n, name), n_launch,
+                         sres["batches"], PER_BATCH[one], shards=n)
         files = same_outputs(sd, os.path.join(work, "cmp_gpu_" + one),
                              "--devices %d, %s, vs one device" % (n, name))
         out["devices_%s_%d_pairs" % (name, CPU_PAIRS)] = n_launch
-        walls.append("%s at --devices %d %.3f s, %d launches (%s)"
-                     % (name, n, swall, n_launch, ", ".join(files)))
+        walls.append("%s at --devices %d %.3f s, launches %s (%s)"
+                     % (name, n, swall, _fmt(n_launch), ", ".join(files)))
     print("phase devices: %d pairs, main path, --devices 2 with the device "
           "request %s (BOTH SHARDS SHARE ONE CARD: equality is shown, speed "
           "is not) in %.3f s wall = %.0f pairs/s, beside phase main's %.3f s "
-          "on one device; %d overlap kernel launches (2 per batch); files "
+          "on one device; kernel launches %s (each shard its own); files "
           "and JSON equal to phase main's; %d-pair prefixes equal to the "
           "one-device runs on the card: %s"
           % (MAIN_PAIRS, _one_card(2), wall, MAIN_PAIRS / wall, main_wall,
-             launches, CPU_PAIRS, "; ".join(walls)), flush=True)
+             _fmt(launches), CPU_PAIRS, "; ".join(walls)), flush=True)
     out["walls"] = {"devices_2": wall, "main": main_wall}
     return out
 
@@ -1117,9 +1581,9 @@ def phase_pipeline(work, r1, r2):
         name = "pipe_main_%d_%s" % (k, mode)
         (res, d, wall, n), moved = _moved(lambda: _drive(
             work, name, main, **env, **TIMING_ON))
-        check(n == res["batches"] == MAIN_BATCHES,
-              "%s: %d overlap kernel launches for %d batches"
-              % (name, n, res["batches"]))
+        check(res["batches"] == MAIN_BATCHES, "%s: %d batches"
+              % (name, res["batches"]))
+        _check_per_batch(name, n, res["batches"], PER_BATCH["main"])
         same_outputs(d, os.path.join(work, "main"), name + " vs phase main")
         shutil.rmtree(d)
         walls.append((mode, wall))
@@ -1139,18 +1603,17 @@ def phase_pipeline(work, r1, r2):
     numbers["main_spreads"] = spread
     numbers["main_input_kinds"] = kinds
     # 2. se, failed, merge at prefetch 1 against their phases (prefetch 3)
-    others = {"se": (["-i", r1, "-o", "out.fq"], 0),
-              "failed": (pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS], 2),
-              "merge": (pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS],
-                        2)}
+    others = {"se": ["-i", r1, "-o", "out.fq"],
+              "failed": pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS],
+              "merge": pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS]}
     other_walls = {}
-    for path, (args, per) in others.items():
+    for path, args in others.items():
         name = "pipe_%s_prefetch1" % path
         res, d, wall, n = _drive(work, name, args, FASTP_TPU_PREFETCH="1",
                                  **TIMING_ON)
-        check(n == per * MAIN_BATCHES and res["batches"] == MAIN_BATCHES,
-              "%s: %d overlap kernel launches for %d batches"
-              % (name, n, res["batches"]))
+        check(res["batches"] == MAIN_BATCHES, "%s: %d batches"
+              % (name, res["batches"]))
+        _check_per_batch(name, n, res["batches"], PER_BATCH[path])
         same_outputs(d, os.path.join(work, path),
                      "%s at prefetch 1 vs phase %s" % (path, path))
         shutil.rmtree(d)
@@ -1170,7 +1633,7 @@ def phase_pipeline(work, r1, r2):
         name = "pipe_bytes_" + label
         (res, d, _, n), moved = _moved(lambda: _drive(work, name, short,
                                                       **env))
-        check(n == res["batches"] == CPU_BATCHES, "%s: %d launches" % (name, n))
+        _check_per_batch(name, n, CPU_BATCHES, PER_BATCH["main"])
         same_outputs(d, os.path.join(work, "cmp_gpu_main"),
                      name + " vs phase cpu's run on the card")
         # the last transfer of an accumulating run is the run's sums
@@ -1201,13 +1664,13 @@ def phase_pipeline(work, r1, r2):
     served = os.path.join(work, "pipe_served")
     os.makedirs(served)
     before = _settled_threads()
-    overlap_cuda.sweep_select.launches = 0
+    kernel_launches.reset()
     rc = server._run_job(["fastp_tpu_torch", *short], served, None)
-    launches["pipe_served_job"] = overlap_cuda.sweep_select.launches
+    launches["pipe_served_job"] = kernel_launches.snapshot()
     after = _settled_threads()
-    check(rc == 0 and launches["pipe_served_job"] == CPU_BATCHES,
-          "the served job gave %d, %d launches"
-          % (rc, launches["pipe_served_job"]))
+    check(rc == 0, "the served job gave %d" % rc)
+    _check_per_batch("the served job", launches["pipe_served_job"],
+                     CPU_BATCHES, PER_BATCH["main"])
     check(after == before, "a served job left threads: %d before, %d after: %s"
           % (before, after, [t.name for t in threading.enumerate()]))
     same_outputs(served, os.path.join(work, "cmp_gpu_main"),
@@ -1227,7 +1690,10 @@ def phase_pipeline(work, r1, r2):
           "the trace holds %d bytes" % len(text))
     numbers["trace"] = {"bytes": len(text),
                         "kernel_events": text.count('"cat": "kernel"'),
-                        "overlap_sweep_events": text.count("overlap_sweep")}
+                        "overlap_sweep_events": text.count("overlap_sweep"),
+                        "stat_batch_events": text.count("stat_batch_kernel"),
+                        "adapter_match_events": text.count(
+                            "adapter_match_kernel")}
     print("phase pipeline: %d pairs, main path, wall seconds in turns: %s; "
           "medians %s, spreads %s; every run %d launches, files and JSON "
           "equal to phase main's; input schemes (batches): %s; bytes per "
@@ -1381,6 +1847,9 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
         check(len(calls) == res["batches"] == CPU_BATCHES,
               "%s: %d batches queued for %d" % (name, len(calls),
                                                 res["batches"]))
+        _check_per_batch("graph " + name, n, res["batches"],
+                         PER_BATCH[name.split("_")[0] if name.startswith(
+                             "main") else name])
         if kind:
             check(set(res["input_kinds"]) == {kind}, "%s went up as %s"
                   % (name, res["input_kinds"]))
@@ -1404,14 +1873,15 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
         d = os.path.join(work, "graph_served%d" % k)
         os.makedirs(d)
         before = len(step_device.graph_log)
-        overlap_cuda.sweep_select.launches = 0
+        kernel_launches.reset()
         rc = server._run_job(["fastp_tpu_torch", *main, *prefix], d, None)
         check(rc == 0, "served job %d exited %d" % (k, rc))
         served.append((len(step_device.graph_log) - before,
-                       overlap_cuda.sweep_select.launches))
-    check(served[1][0] == 0 and served[1][1] == CPU_BATCHES,
-          "the second served job captured %d graphs, %d launches"
-          % served[1])
+                       kernel_launches.snapshot()))
+    check(served[1][0] == 0, "the second served job captured %d graphs"
+          % served[1][0])
+    _check_per_batch("the second served job", served[1][1], CPU_BATCHES,
+                     PER_BATCH["main"])
     same_outputs(os.path.join(work, "graph_served1"),
                  os.path.join(work, "graph_served0"),
                  "the second served job vs the first")
@@ -1429,9 +1899,11 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
         check(g["cudaGraphLaunch"] == 1 and sum(g.values()) < 50,
               "%s: per batch %s" % (name, g))
     captures = {name: [(str(key[0][0][1]), key[1], key[2], round(sec, 3),
-                        round(warm, 3), nbytes, sweeps)
-                       for key, sec, nbytes, sweeps, warm in log]
+                        round(warm, 3), nbytes, held)
+                       for key, sec, nbytes, held, warm in log]
                 for name, log in CAPTURES.items()}
+    device_ms = {name: _graph_device_time(name, recorded[name])
+                 for name in ("main_p3", "se", "failed", "merge", "gap")}
     timing = {}
     for name in ("main", "se", "failed", "merge"):
         for line in TIMING_LINES.get(name, []):
@@ -1441,8 +1913,10 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
                     timing.setdefault(name, {})[field] = float(m.group(1))
     trace = (pipe_numbers or {}).get("trace")
     if trace is not None:
-        check(trace["overlap_sweep_events"] >= 1,
-              "the FASTP_TPU_PROFILE trace names no overlap_sweep: %s" % trace)
+        check(trace["overlap_sweep_events"] >= 1
+              and trace["stat_batch_events"] >= 1
+              and trace["adapter_match_events"] >= 1,
+              "the FASTP_TPU_PROFILE trace misses a kernel: %s" % trace)
     print("phase graph: %d pairs (%d batches, the last partial), graph "
           "against eager on the card, bit-equal on every key of every "
           "batch: %s; a second served job of the main path captured %d "
@@ -1451,7 +1925,7 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
           "%s; the captures of each run that made one, in this script's "
           "process (first argument's shape, accum, shard, seconds of the "
           "capture, of the warm-up runs, bytes of reserved memory it added, "
-          "overlap launches per replay): %s; %d captures in all; memo "
+          "kernel launches per replay): %s; %d captures in all; memo "
           "entries %d, reserved %d bytes (one pool per "
           "entry, shared by its graphs); TIMING of the 1M-pair paths: %s; "
           "FASTP_TPU_PROFILE trace: %s"
@@ -1461,7 +1935,65 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
              json.dumps(captures), len(step_device.graph_log),
              len(step_device._memo), torch.cuda.memory_reserved(),
              json.dumps(timing), json.dumps(trace)), flush=True)
-    return launches
+    for name, got in device_ms.items():
+        print("graph device time %s: %s" % (name, json.dumps(got)),
+              flush=True)
+    return launches, device_ms
+
+
+def _graph_of(step, args, accum, shard=0):
+    """The _Graph that a step captured for a batch of these arguments."""
+    arrays = [np.ascontiguousarray(a) for a in args]
+    key = (tuple((a.dtype.str, a.shape) for a in arrays), accum, shard)
+    return step._graphs[key], arrays
+
+
+def _device_ops(fn, runs):
+    """torch.profiler's device events (kernels, copies, sets) of fn(), in
+    ms per run by name, largest first, and their sum per run."""
+    from torch import profiler
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / runs
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return ops, sum(ms for _, ms in ops)
+
+
+def _graph_device_time(name, calls, runs=3):
+    """A path's captured step on its first (full) batch: device ms of one
+    replay between CUDA events on the step's stream (median of 20), and
+    the step's largest device ops by name from one torch.profiler window
+    over `runs` replays; when CUPTI shows no node of the graph, the eager
+    step's ops instead (graph=False), which the result says."""
+    step, args, accum, cfg, devices = calls[0]
+    g, arrays = _graph_of(step, args, accum)
+    with torch.no_grad(), step.on_stream():
+        g.load(step.io, arrays)
+        replay_ms = _median_ms(g.graph.replay, runs=20)
+
+        def replays():
+            for _ in range(runs):
+                g.graph.replay()
+        ops, busy = _device_ops(replays, runs)
+    source = "graph replays"
+    if not ops:
+        eager = _eager_twin(step, cfg, devices)
+        ops, busy = _device_ops(lambda: [_batch_outputs(eager, args, accum)
+                                         for _ in range(runs)], runs)
+        source = "eager step (CUPTI showed no node of the graph)"
+    return {"rows": int(np.asarray(args[-1])), "replay_ms": replay_ms,
+            "profiled": source, "device_ms_per_batch": busy,
+            "top_ops_ms": [(n[:80], round(ms, 5)) for n, ms in ops[:12]],
+            "kernels_ms": {k: round(sum(ms for n, ms in ops if k in n), 5)
+                           for k in ("overlap_sweep", "stat_batch_kernel",
+                                     "adapter_match_kernel")}}
 
 
 def _prefix(src, dst, records, skip=0):
@@ -1503,8 +2035,16 @@ class LaunchLog:
         with open(self.path) as fh:
             return [json.loads(line) for line in fh if line.strip()]
 
-    def launches(self):
-        return sum(job["overlap_sweep"] for job in self.jobs())
+    def launches(self, kernel="overlap_sweep"):
+        return sum(job[kernel] for job in self.jobs())
+
+    def totals(self):
+        """{kernel: launches} over the logged jobs."""
+        return {k: self.launches(k) for k in kernel_launches.KERNELS}
+
+    def loaded(self):
+        """The kernel libraries the logged jobs loaded, each job's list."""
+        return [job["loaded"] for job in self.jobs()]
 
 
 def _same_file(path_a, path_b, what):
@@ -1687,16 +2227,20 @@ def phase_serve(work, m1, m2, p1, p2):
         for k in range(3):
             same_outputs(os.path.join(d, "served%d" % k),
                          os.path.join(d, "cold"), "served vs cold job")
-        small_launches = log.launches()
+        small_launches = log.totals()
         check(len(log.jobs()) == 3 and all(
             job["pid"] == pid for job in log.jobs()),
             "the served jobs did not run inside the server: %s" % log.jobs())
+        # the server built and loaded every kernel before READY
+        check(log.loaded() == [[]] * 3, "served jobs loaded kernel "
+              "libraries: %s" % log.loaded())
+        _check_per_batch("the served %d-pair jobs" % CPU_PAIRS, log.totals(),
+                         CPU_BATCHES, PER_BATCH["main"], shards=3)
         log.reset()
         _, err, big_wall = _port_job(big, os.path.join(d, "big"), **served_env)
-        big_launches = log.launches()
-        check(big_launches >= MID_BATCHES, "the served %d-pair job launched "
-              "the overlap kernel %d times for %d batches"
-              % (MID_PAIRS, big_launches, MID_BATCHES))
+        big_launches = log.totals()
+        _check_per_batch("the served %d-pair job" % MID_PAIRS, big_launches,
+                         MID_BATCHES, PER_BATCH["main"])
         same_outputs(os.path.join(d, "big"), os.path.join(work, "main_mid"),
                      "served %d-pair job vs the same prefix in this process"
                      % MID_PAIRS)
@@ -1709,7 +2253,8 @@ def phase_serve(work, m1, m2, p1, p2):
                              os.path.join(d, "merge0"), "second served merge "
                              "job vs the first")
         check("merged.fq" in files, "the merge job wrote %s" % files)
-        total_launches = small_launches + log.launches()
+        total_launches = {k: small_launches[k] + log.launches(k)
+                          for k in kernel_launches.KERNELS}
         with _cwd(d):
             pong = client.ping("s.sock")
             check(pong is not None and pong.get("jobs") == 6
@@ -1737,14 +2282,15 @@ def phase_serve(work, m1, m2, p1, p2):
     print("phase serve: READY %.3f s after start (--warm-run of %d pairs); "
           "%d-pair main-path job, wall seconds of `python -m fastp_tpu_torch`: "
           "served %s; cold (once) %.3f; outputs equal; %d-pair main job "
-          "served in %.3f s = %.0f pairs/s, %d overlap kernel launches, files "
+          "served in %.3f s = %.0f pairs/s, kernel launches %s, files "
           "and JSON equal to the same prefix run in this process; --merge "
           "--dedup job served twice (%s s), "
-          "equal; ping: %s; second serve exits %d; shutdown rc 0, socket "
-          "removed"
+          "equal; no served job loaded a kernel library (--warm-run's "
+          "--warm loaded all three before READY); ping: %s; second serve "
+          "exits %d; shutdown rc 0, socket removed"
           % (ready, CPU_PAIRS, CPU_PAIRS,
              ", ".join("%.3f" % w for w in served), cold, MID_PAIRS, big_wall,
-             MID_PAIRS / big_wall, big_launches,
+             MID_PAIRS / big_wall, _fmt(big_launches),
              ", ".join("%.3f" % w for w in merge_walls), json.dumps(pong),
              second.returncode), flush=True)
     return {"serve_%d_pairs" % MID_PAIRS: big_launches,
@@ -1787,12 +2333,11 @@ def phase_procs(work, m1, m2, p1, p2):
         jobs = log.jobs()
         check(len(jobs) == n and len({job["pid"] for job in jobs}) == n,
               "--local_processes %d logged %s" % (n, jobs))
-        out["procs_%d" % n] = log.launches()
-        check(all(job["overlap_sweep"] > 0 for job in jobs)
-              and out["procs_%d" % n] >= MID_BATCHES,
-              "--local_processes %d launched the overlap kernel %s times for "
-              "%d batches" % (n, [job["overlap_sweep"] for job in jobs],
-                              MID_BATCHES))
+        out["procs_%d" % n] = log.totals()
+        check(all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS)
+              and out["procs_%d" % n]["overlap_sweep"] >= MID_BATCHES,
+              "--local_processes %d launched %s for %d batches"
+              % (n, jobs, MID_BATCHES))
         others[n] = _same_as_shards(
             mid, nd, n, ("out1.fq", "out2.fq"),
             "--local_processes %d vs one process" % n,
@@ -1804,8 +2349,10 @@ def phase_procs(work, m1, m2, p1, p2):
     log.reset()
     _, _, merge_wall = _port_job(merge + ["--local_processes", "2"],
                                  os.path.join(d, "merge_n2"), **log.env)
-    out["procs_merge_2"] = log.launches()
-    check(out["procs_merge_2"] > 0, "the merge shards launched no kernel")
+    out["procs_merge_2"] = log.totals()
+    check(out["procs_merge_2"]["overlap_sweep"] > 0
+          and out["procs_merge_2"]["stat_batch"] > 0,
+          "the merge shards launched %s" % out["procs_merge_2"])
     _same_as_shards(os.path.join(d, "merge_single"),
                     os.path.join(d, "merge_n2"), 2,
                     ("merged.fq", "out1.fq", "out2.fq"),
@@ -1815,23 +2362,24 @@ def phase_procs(work, m1, m2, p1, p2):
           "= %.0f pairs/s, N=2 %.3f s = %.0f pairs/s, N=4 %.3f s = %.0f "
           "pairs/s (of which the job's own \"time used\": %d, %d, %d s); N=2 "
           "with FASTP_TPU_SERVERS naming two warm servers on the one card "
-          "%.3f s = %.0f pairs/s, %d launches, every file and the JSON equal "
-          "to the plain N=2 run's; overlap kernel launches %d "
-          "and %d; the shards' files in order equal one process's, the "
+          "%.3f s = %.0f pairs/s, launches %s, no kernel library loaded by a "
+          "served shard, every file and the JSON equal to the plain N=2 "
+          "run's; kernel launches %s and %s; the shards' files in order equal one process's, the "
           "merged JSON too but for read1/read2_adapter_counts, whose "
           "maps cap per shard: those equal the maps of each shard's records "
           "run alone in this process, added up (the sums of their numbers, "
           "one process and N shards: %s); --merge --dedup (cfg5 flags less "
           "--overrepresentation_analysis) on %d pairs: in this process %.3f s, "
           "--local_processes 2 %.3f s, merged.fq, out1.fq, out2.fq and JSON "
-          "equal (%d launches)"
+          "equal (launches %s)"
           % (MID_PAIRS, walls[1], MID_PAIRS / walls[1], walls[2],
              MID_PAIRS / walls[2], walls[4], MID_PAIRS / walls[4], used[1],
              used[2], used[4], served_wall, MID_PAIRS / served_wall,
-             out["procs_2_servers"],
-             out["procs_2"], out["procs_4"],
+             _fmt(out["procs_2_servers"]),
+             _fmt(out["procs_2"]), _fmt(out["procs_4"]),
              "; ".join("N=%d %d, %d" % (n, *o) for n, o in others.items()),
-             CPU_PAIRS, single_wall, merge_wall, out["procs_merge_2"]), flush=True)
+             CPU_PAIRS, single_wall, merge_wall, _fmt(out["procs_merge_2"])),
+          flush=True)
     out["walls"] = dict(walls, n2_in_servers=served_wall)
     return out
 
@@ -1839,7 +2387,8 @@ def phase_procs(work, m1, m2, p1, p2):
 def _shards_in_servers(d, big, log):
     """`big --local_processes 2` with FASTP_TPU_SERVERS naming two resident
     servers (started together, --warm), compared with the plain N=2 run in
-    d/n2.  Returns (launcher's wall seconds, overlap kernel launches)."""
+    d/n2; each shard, in a server started with --warm, loads no kernel
+    library.  Returns (launcher's wall seconds, {kernel: launches})."""
     socks = ["s0.sock", "s1.sock"]
     servers = []
     try:
@@ -1868,8 +2417,10 @@ def _shards_in_servers(d, big, log):
         check(sorted(job["pid"] for job in jobs) == sorted(pids),
               "the shards did not run inside the two servers %s: %s"
               % (pids, jobs))
-        check(all(job["overlap_sweep"] > 0 for job in jobs),
+        check(all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS),
               "a served shard launched no kernel: %s" % jobs)
+        check(log.loaded() == [[], []], "the shards in servers started with "
+              "--warm loaded kernel libraries: %s" % log.loaded())
         same_outputs(nd, os.path.join(d, "n2"),
                      "--local_processes 2 in two servers vs the plain run")
         check(sorted(os.listdir(nd)) == sorted(os.listdir(os.path.join(d, "n2"))),
@@ -1882,7 +2433,7 @@ def _shards_in_servers(d, big, log):
                 check(client.shutdown_server(sock), "no reply to shutdown")
         for srv, _ in servers:
             check(srv.wait(timeout=60) == 0, "a server exited non-zero")
-        return wall, log.launches()
+        return wall, log.totals()
     finally:
         for srv, err_fh in servers:
             if srv.poll() is None:
@@ -1909,9 +2460,10 @@ def env_turns(work, setting, rounds):
                                         **dict(TIMING_ON, **env))
         fetches = step_device.fetch_stats["fetches"] - before
         mode = setting if env else "default"
-        check(launches == res["batches"] == MAIN_BATCHES,
-              "turn %d (%s): %d batches, %d launches"
-              % (k, mode, res["batches"], launches))
+        check(res["batches"] == MAIN_BATCHES, "turn %d (%s): %d batches"
+              % (k, mode, res["batches"]))
+        _check_per_batch("turn %d (%s)" % (k, mode), launches, res["batches"],
+                         PER_BATCH["main"])
         if k:
             same_outputs(d, os.path.join(work, "turn0"), "turn %d vs turn 0" % k)
             shutil.rmtree(d)
@@ -2002,7 +2554,7 @@ def _free_port():
 
 def phase_dist(work, m1, m2):
     """Two ranks of one job over torch.distributed, both on the one card.
-    Returns (overlap kernel launches, wall seconds)."""
+    Returns ({kernel: launches}, wall seconds)."""
     d = os.path.join(work, "dist")
     os.makedirs(d)
     log = LaunchLog(work, "dist")
@@ -2031,23 +2583,23 @@ def phase_dist(work, m1, m2):
     wall = time.perf_counter() - t0
     jobs = log.jobs()
     check(len(jobs) == 2 and len({job["pid"] for job in jobs}) == 2
-          and all(job["overlap_sweep"] > 0 for job in jobs),
+          and all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS),
           "the two ranks logged %s" % jobs)
-    launches = log.launches()
-    check(launches >= MID_BATCHES, "the ranks launched the overlap kernel %d "
-          "times for %d batches" % (launches, MID_BATCHES))
+    launches = log.totals()
+    check(launches["overlap_sweep"] >= MID_BATCHES, "the ranks launched %s "
+          "for %d batches" % (launches, MID_BATCHES))
     taken = _same_as_shards(os.path.join(work, "main_mid"), d, 2,
                             ("out1.fq", "out2.fq"),
                             "two ranks over torch.distributed vs one process",
                             adapters=_sharded_adapter_counts(work, m1, m2, 2))
     print("phase dist: %d pairs, main path, two ranks (gloo on 127.0.0.1, no "
           "FASTP_TPU_FS_EXCHANGE), both on the one card, in %.3f s wall from "
-          "start to the second rank's end = %.0f pairs/s; %d overlap kernel "
-          "launches (%s); the ranks' files in order equal one process's, the "
+          "start to the second rank's end = %.0f pairs/s; kernel launches "
+          "%s (overlap_sweep %s); the ranks' files in order equal one process's, the "
           "merged JSON too but for read1/read2_adapter_counts, which equal "
           "the maps of each rank's records run alone in this process, added "
           "up (the sums of their numbers, one process and two ranks: %d, %d)"
-          % (MID_PAIRS, wall, MID_PAIRS / wall, launches,
+          % (MID_PAIRS, wall, MID_PAIRS / wall, _fmt(launches),
              " + ".join(str(job["overlap_sweep"]) for job in jobs), *taken),
           flush=True)
     return launches, wall
@@ -2077,14 +2629,15 @@ def phase_selftest(work, meanwhile):
     passed = [ln for ln in lines if ln.endswith(": PASSED")]
     check(len(passed) == len(lines) >= 10 and "ALL PASSED" in stdout,
           "the self-test printed:\n%s" % stdout)
-    launches = log.launches()
-    check(launches >= 2, "the self-test launched the overlap kernel %d times "
-          "(OverlapAnalysis::analyze and BaseCorrector analyse one pair row "
-          "each)" % launches)
+    launches = log.totals()
+    check(launches["overlap_sweep"] >= 2 and launches["trim_by_sequence"] >= 1,
+          "the self-test launched %s (OverlapAnalysis::analyze and "
+          "BaseCorrector analyse one pair row each, AdapterTrimmer one read)"
+          % launches)
     print("phase selftest: `python -m fastp_tpu_torch test` on the card in "
           "%.3f s (phase no_card ran meanwhile): %d checks PASSED, ALL "
-          "PASSED; %d overlap kernel launches at B=1"
-          % (wall, len(passed), launches), flush=True)
+          "PASSED; kernel launches at B=1: %s"
+          % (wall, len(passed), _fmt(launches)), flush=True)
     return launches
 
 
@@ -2110,13 +2663,14 @@ def phase_batch(work, r1, r2):
         ["-i", indir, "-o", os.path.join(d, "out"), "-r",
          os.path.join(d, "rep"), "--args=" + " ".join(extra)], d,
         module="fastp_tpu_torch.batch", **log.env)
-    launches = log.launches()
+    launches = log.totals()
     jobs = batch.scan_dir(indir)
     check(len(jobs) == 3 and sum(1 for _, second in jobs if second) == 2,
           "scan_dir found %s" % jobs)
     check(len(log.jobs()) == 3 and len({j["pid"] for j in log.jobs()}) == 1,
           "the batch jobs did not run in one process: %s" % log.jobs())
-    check(launches >= 2, "the batch's paired jobs launched %d kernels" % launches)
+    check(launches["overlap_sweep"] >= 2 and launches["stat_batch"] >= 6,
+          "the batch's jobs launched %s" % launches)
     check(os.path.getsize(os.path.join(d, "rep", "overall.html")) > 0,
           "no overall.html")
     compared = []
@@ -2138,9 +2692,9 @@ def phase_batch(work, r1, r2):
             check(same, "batch: %s differs from the direct run's" % ours)
             compared.append(os.path.basename(ours))
     print("phase batch: `python -m fastp_tpu_torch.batch` over 3 samples of "
-          "%d (two paired, one single-end) in %.3f s in one process, %d "
-          "overlap kernel launches; equal to direct runs: %s; overall.html "
-          "written" % (CPU_PAIRS, wall, launches, ", ".join(compared)),
+          "%d (two paired, one single-end) in %.3f s in one process, kernel "
+          "launches %s; equal to direct runs: %s; overall.html "
+          "written" % (CPU_PAIRS, wall, _fmt(launches), ", ".join(compared)),
           flush=True)
     return launches
 
@@ -2193,13 +2747,14 @@ def _mid_reference(work, m1, m2):
     res, d, wall, launches = _drive(
         work, "main_mid", ["-i", m1, "-I", m2, "-o", "out1.fq", "-O",
                            "out2.fq", *BENCH_FLAGS])
-    check(launches == res["batches"] == MID_BATCHES,
-          "the %d-pair run: %d overlap kernel launches for %d batches"
-          % (MID_PAIRS, launches, res["batches"]))
+    check(res["batches"] == MID_BATCHES, "the %d-pair run: %d batches"
+          % (MID_PAIRS, res["batches"]))
+    _check_per_batch("the %d-pair run" % MID_PAIRS, launches, res["batches"],
+                     PER_BATCH["main"])
     _nonempty_outputs(d, "the %d-pair run" % MID_PAIRS)
     print("reference for phases serve, procs and dist: the first %d pairs, "
-          "main path, in this process in %.3f s wall; %d batches, %d overlap "
-          "kernel launches" % (MID_PAIRS, wall, res["batches"], launches),
+          "main path, in this process in %.3f s wall; %d batches, kernel "
+          "launches %s" % (MID_PAIRS, wall, res["batches"], _fmt(launches)),
           flush=True)
     return launches
 
@@ -2252,7 +2807,7 @@ def main(argv=None):
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
             r1, r2 = _finish_corpus(_start_corpus(work, CPU_PAIRS))
-            phase_graph(work, r1, r2)
+            _, device_ms = phase_graph(work, r1, r2)
         print(card)
         print("graph-only run: no other phase was driven")
         return 0
@@ -2265,15 +2820,15 @@ def main(argv=None):
         return 0
     launches = {}
     if args.kernel_only:
-        worst, timing, bounds = phase_kernel(args.old_kernel)
+        worst, timing, bounds, new_kernels = phase_kernel(args.old_kernel)
     else:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
             # the corpus is written by a process of its own meanwhile
             corpus = _start_corpus(work)
             try:
-                worst, timing, bounds = _timed("kernel", phase_kernel,
-                                               args.old_kernel)
+                worst, timing, bounds, new_kernels = _timed(
+                    "kernel", phase_kernel, args.old_kernel)
                 _timed("golden", phase_golden, work)
                 r1, r2 = _timed("corpus_wait", _finish_corpus, corpus)
             finally:
@@ -2291,8 +2846,9 @@ def main(argv=None):
             moved = _timed("accum", phase_accum, work, r1, r2)
             piped, pipe_numbers = _timed("pipeline", phase_pipeline, work,
                                          r1, r2)
-            launches.update(_timed("graph", phase_graph, work, r1, r2,
-                                   pipe_numbers))
+            graph_launches, device_ms = _timed("graph", phase_graph, work,
+                                               r1, r2, pipe_numbers)
+            launches.update(graph_launches)
             p1 = _prefix(r1, os.path.join(work, "P1.fq"), CPU_PAIRS)
             p2 = _prefix(r2, os.path.join(work, "P2.fq"), CPU_PAIRS)
             m1 = _prefix(r1, os.path.join(work, "M1.fq"), MID_PAIRS)
@@ -2322,14 +2878,35 @@ def main(argv=None):
     bound, bound0 = bounds[main_pct], bounds[zero_pct]
     if not args.kernel_only:
         print(json.dumps({"wall_seconds": walls}))
+        print(json.dumps({"graph_device_ms": device_ms}))
         print(json.dumps({"phase_seconds": PHASE_SECONDS,
                           "script_seconds": time.perf_counter() - SCRIPT_T0}))
     print(card)
+
+    def per_path(kernel):
+        return {path: n[kernel] for path, n in launches.items()
+                if isinstance(n, dict) and kernel in n}
+
+    def entry(name, source, replaces, result, why):
+        t, bound = result["timing"], result["bound"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": launches.get("main", {}).get(name),
+                "launches_per_path": per_path(name),
+                "max_abs_err": result["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"],
+                "share_of_bound": bound["bound_ms"] / t["ms"],
+                "library_ms": None, "library_ms_why": why,
+                "call_ms": t["call_ms"], "plain_eager_ms": t["plain_eager_ms"],
+                "cases": result["cases"]}
+
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",
         "source": "fastp_tpu_torch/csrc/overlap_sweep.cu",
         "replaces": "fastp_tpu/ops/overlap_pallas.py:26",
-        "launches": launches.get("main"), "launches_per_path": launches,
+        "launches": launches.get("main", {}).get("overlap_sweep"),
+        "launches_per_path": per_path("overlap_sweep"),
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "share_of_bound": bound["bound_ms"] / t["ms"],
@@ -2340,7 +2917,14 @@ def main(argv=None):
         "ms_diff_pct_0": t0["ms"], "call_ms_diff_pct_0": t0["call_ms"],
         "plain_ms_diff_pct_0": t0["plain_ms"],
         "bound_ms_diff_pct_0": bound0["bound_ms"],
-        "share_of_bound_diff_pct_0": bound0["bound_ms"] / t0["ms"]}]}))
+        "share_of_bound_diff_pct_0": bound0["bound_ms"] / t0["ms"]},
+        entry("stat_batch", "fastp_tpu_torch/csrc/stat_batch.cu",
+              "fastp_tpu/ops/stats.py:26", new_kernels["stat_batch"],
+              "no single PyTorch call computes the whole dict of per-cycle "
+              "sums and histograms"),
+        entry("trim_by_sequence", "fastp_tpu_torch/csrc/adapter_match.cu",
+              "fastp_tpu/ops/adapter.py:57", new_kernels["trim_by_sequence"],
+              "no single PyTorch call computes the first adapter match")]}))
     if args.kernel_only:
         print("kernel-only run: the main path was not driven")
         return 0

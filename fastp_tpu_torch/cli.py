@@ -651,22 +651,31 @@ def prepare_options(argv, parsed=None):
 LAUNCH_LOG_ENV = "FASTP_TPU_TORCH_LAUNCH_LOG"
 
 
-def _kernel_launches() -> int:
-    from .ops.overlap_cuda import sweep_select
-    return sweep_select.launches
+def _kernel_launches():
+    """(the launches of each kernel so far, the libraries loaded so far)."""
+    from . import cuda_build
+    from .ops import launches
+    return launches.snapshot(), len(cuda_build.loaded)
 
 
-def _log_launches(argv, before: int):
+def _log_launches(argv, before):
     """With FASTP_TPU_TORCH_LAUNCH_LOG naming a file, append one JSON line
-    with the overlap kernel's launches during this job: how a caller counts
-    the launches of a job that ran in another process (a resident server, a
-    shard of --local_processes)."""
+    with each kernel's launches during this job (a key per kernel of
+    ops/launches.py) and the kernel libraries it loaded (`loaded`; none for
+    a job that found them loaded, as a warm server's jobs do): how a caller
+    counts the launches of a job that ran in another process (a resident
+    server, a shard of --local_processes).  `before` is what
+    _kernel_launches gave at the job's start."""
     path = os.environ.get(LAUNCH_LOG_ENV)
     if path:
-        line = json.dumps({"pid": os.getpid(), "argv": list(argv[1:]),
-                           "overlap_sweep": _kernel_launches() - before})
+        from . import cuda_build
+        from .ops import launches
+        counts, n_loaded = before
+        line = dict({"pid": os.getpid(), "argv": list(argv[1:])},
+                    **launches.since(counts),
+                    loaded=cuda_build.loaded[n_loaded:])
         with open(path, "a") as fh:
-            fh.write(line + "\n")
+            fh.write(json.dumps(line) + "\n")
 
 
 # the window of batches that FASTP_TPU_PROFILE traces: a whole run of a

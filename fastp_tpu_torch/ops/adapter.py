@@ -11,18 +11,22 @@ AdapterTrimmer::trimBySequence:
     the first matching pos is derived from the largest matching cmplen.
 trim_by_overlap reproduces trimByOverlapAnalysis (negative-offset clipping).
 The adapter bytes come in as a uint8 tensor on the batch's device
-(uploaded once when the step is built).
+(uploaded once when the step is built).  `trim_by_sequence` runs the plain
+PyTorch version below (`trim_by_sequence_plain`) for CPU tensors and the
+hand-written CUDA kernel (ops/adapter_cuda.py, csrc/adapter_match.cu) for
+CUDA tensors; any other device raises.
 """
 from __future__ import annotations
 
 import torch
 
+from .adapter_cuda import trim_by_sequence_cuda
 from .common import I32, pos_iota, first_true_index
 
 ALLOW_ONE_MISMATCH_FOR_EACH = 8
 
 
-def _match_with_one_insertion_static(ins, norm, cmplen: int, limit: int):
+def _match_with_one_insertion_plain(ins, norm, cmplen: int, limit: int):
     """Matcher::matchWithOneInsertion (src/matcher.cpp:10-54) with static
     cmplen/limit.  ins: uint8[B, >=cmplen+1], norm: uint8[B, >=cmplen].
     Returns bool[B].
@@ -47,7 +51,19 @@ def _match_with_one_insertion_static(ins, norm, cmplen: int, limit: int):
 
 
 def trim_by_sequence(bases, lengths, adapter, match_req: int = 4):
-    """adapter: uint8[alen] tensor on the batch's device.
+    """adapter: uint8[alen] tensor on the batch's device.  The plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if bases.device.type == "cpu":
+        return trim_by_sequence_plain(bases, lengths, adapter, match_req)
+    if bases.device.type == "cuda":
+        return trim_by_sequence_cuda(bases, lengths, adapter, match_req)
+    raise ValueError("trim_by_sequence runs on cpu or cuda, not %s"
+                     % bases.device)
+
+
+def trim_by_sequence_plain(bases, lengths, adapter, match_req: int = 4):
+    """trim_by_sequence in plain PyTorch: the CPU's version and the
+    reference of the CUDA kernel.
 
     Returns (new_len[B], found[B], pos[B]) -- pos may be negative.  When
     found & pos < 0 the read is emptied; the recorded adapter is
@@ -104,9 +120,9 @@ def trim_by_sequence(bases, lengths, adapter, match_req: int = 4):
         lim = cl // ALLOW_ONE_MISMATCH_FOR_EACH - 1
         if lim < 0:
             continue  # never matches: leave the entry out
-        ins_tbl[cl] = _match_with_one_insertion_static(b_cut, a_b, cl, lim)
+        ins_tbl[cl] = _match_with_one_insertion_plain(b_cut, a_b, cl, lim)
         if cl <= alen - 1:
-            del_tbl[cl] = _match_with_one_insertion_static(a_b, b_cut, cl, lim)
+            del_tbl[cl] = _match_with_one_insertion_plain(a_b, b_cut, cl, lim)
 
     def first_match_from_table(tbl, cl_of_p0, p_of_cl, p_limit):
         """cmplen descends from cl_of_p0 as p ascends: pick the largest

@@ -52,6 +52,35 @@ _TABLES = {}
 _tables_lock = threading.Lock()
 
 
+def check_arg(name, t, dtype, shape, device):
+    """Raise unless tensor `t` has this dtype, shape and device and is
+    contiguous: what a hand-written kernel's wrapper checks before it
+    launches."""
+    if t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("%s has dtype %s, expected %s" % (name, t.dtype, dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s has shape %s, expected %s"
+                         % (name, tuple(t.shape), tuple(shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s is not contiguous" % name)
+
+
+INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def check_lengths(lengths, B: int, device):
+    """Raise unless `lengths` is a [B] tensor of an integer type on
+    `device`; a wrapper converts it to contiguous int32 on the device."""
+    if lengths.dtype not in INT_TYPES:
+        raise TypeError("lengths has dtype %s, expected an integer type"
+                        % lengths.dtype)
+    if tuple(lengths.shape) != (B,) or lengths.device != device:
+        raise ValueError("lengths: %s on %s, expected [%d] on %s"
+                         % (tuple(lengths.shape), lengths.device, B, device))
+
+
 def device_table(name: str, device, make):
     """The constant lookup table `name` on `device`: make() builds it on the
     host, and it is copied to the device once per process.  A copy from

@@ -19,78 +19,32 @@ note has the argument, the details and the measured times).
 `sweep_select` runs the kernel for CUDA tensors and the plain PyTorch
 version (ops/overlap.py:sweep_select_plain) only for CPU tensors.  It
 launches on the calling thread's current stream (the batch loop's dispatch
-worker enters the run's side stream) and counts its kernel launches in
-`sweep_select.launches`.  A step captured as a CUDA graph
-(pipeline/device.py) calls it once while it captures, inside `uncounted()`,
-which tallies those calls for the graph instead; every replay of the graph
-then counts its launches with `count_replayed`.
+worker enters the run's side stream) and counts its launches as
+"overlap_sweep" in the tally the port's three kernels share
+(ops/launches.py), which also says how a CUDA graph's replays count them.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
+from . import launches
+from .common import check_arg
 from .overlap import sweep_select_plain
 
 _SMEM_BUDGET = 48 * 1024  # default dynamic shared memory per block
 MAX_ROWS_PER_BLOCK = 8     # one warp per pair row
-_fn = None
-
-
-_lock = threading.Lock()
-_local = threading.local()
-
-
-@contextlib.contextmanager
-def uncounted():
-    """Calls of sweep_select by this thread inside the block are tallied in
-    the list yielded ([n]) and not counted as launches: a CUDA graph's
-    warm-up runs and its capture, which are no batch."""
-    tally = [0]
-    outer = getattr(_local, "tally", None)
-    _local.tally = tally
-    try:
-        yield tally
-    finally:
-        _local.tally = outer
-
-
-def _count_launch():
-    """One launch of the kernel: counted, or tallied for the graph that this
-    thread is capturing (see uncounted)."""
-    tally = getattr(_local, "tally", None)
-    if tally is not None:
-        tally[0] += 1
-        return
-    with _lock:   # launches come from worker threads
-        sweep_select.launches += 1
-
-
-def count_replayed(n: int):
-    """Count the `n` launches of a CUDA graph's replay."""
-    if n:
-        with _lock:
-            sweep_select.launches += n
 
 
 def _kernel():
-    """The library's launcher, built and loaded at the first launch.  The
-    first launch of a run comes from its dispatch worker, and the shards of
-    two jobs may get here together: one of them builds, the others wait."""
-    global _fn
-    with _lock:
-        if _fn is None:
-            from ..cuda_build import load
-            fn = load("overlap_sweep").overlap_sweep
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p, p, p,
-                           i, p]
-            fn.restype = ctypes.c_int
-            _fn = fn
-    return _fn
+    """The library's launcher, built and loaded at the first launch (the
+    first launch of a run comes from its dispatch worker; the shards of two
+    jobs may get here together: one of them builds, the others wait)."""
+    from ..cuda_build import function
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return function("overlap_sweep", [p, p, p, p, i, i, i, i, ctypes.c_float,
+                                      p, p, p, p, i, p])
 
 
 def padded_row_bytes(L: int) -> int:
@@ -109,18 +63,6 @@ def rows_per_block(L: int) -> int:
     return min(MAX_ROWS_PER_BLOCK, _SMEM_BUDGET // (2 * padded_row_bytes(L)))
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
-    if t.dtype != dtype:
-        raise TypeError("%s has dtype %s, expected %s" % (name, t.dtype, dtype))
-    if tuple(t.shape) != shape:
-        raise ValueError("%s has shape %s, expected %s"
-                         % (name, tuple(t.shape), shape))
-    if not t.is_contiguous():
-        raise ValueError("%s is not contiguous" % name)
-
-
 def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
                  diff_pct: float):
     """First accepted overlap offset per pair row.
@@ -137,10 +79,10 @@ def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
                          % seq1.device)
     B, L = seq1.shape
     dev = seq1.device
-    _check("seq1", seq1, torch.uint8, (B, L), dev)
-    _check("rc2", rc2, torch.uint8, (B, L), dev)
-    _check("len1", len1, torch.int32, (B,), dev)
-    _check("len2", len2, torch.int32, (B,), dev)
+    check_arg("seq1", seq1, torch.uint8, (B, L), dev)
+    check_arg("rc2", rc2, torch.uint8, (B, L), dev)
+    check_arg("len1", len1, torch.int32, (B,), dev)
+    check_arg("len2", len2, torch.int32, (B,), dev)
     warps = rows_per_block(L)
     if warps < 1:
         raise ValueError("read width %d is outside the kernel's shared-memory "
@@ -160,8 +102,5 @@ def sweep_select(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
                  overlap_len.data_ptr(), diff.data_ptr(), warps, stream)
     if err != 0:
         raise RuntimeError("overlap_sweep launch failed: CUDA error %d" % err)
-    _count_launch()
+    launches.count("overlap_sweep")
     return found, offset, overlap_len, diff
-
-
-sweep_select.launches = 0

@@ -2,14 +2,18 @@
 
 Counterpart of fastp_tpu/ops/stats.py.  The JAX version avoids scatters
 (one-hot equality reductions and a bf16 one-hot matmul for the 5-mer
-histogram); here every histogram is an exact int64 `index_add_` scatter
-with a dump bin for masked-out positions.
+histogram).  `stat_batch` runs the plain PyTorch version below
+(`stat_batch_plain`, where every histogram is an exact int64 `index_add_`
+scatter with a dump bin for masked-out positions) for CPU tensors and the
+hand-written CUDA kernel (ops/stats_cuda.py, csrc/stat_batch.cu) for CUDA
+tensors; any other device raises.
 """
 from __future__ import annotations
 
 import torch
 
 from .common import I32, pos_iota, base_slot, base2val, scatter_count
+from .stats_cuda import stat_batch_cuda
 
 Q20_CHAR = ord('5')
 Q30_CHAR = ord('?')
@@ -26,7 +30,18 @@ def stat_batch(bases, quals, lengths, include):
     """include: bool[B] -- which reads contribute (e.g. post-filter pass).
 
     Returns a dict of int64 accumulators for one batch (the keys and
-    shapes of fastp_tpu.ops.stats.stat_batch)."""
+    shapes of fastp_tpu.ops.stats.stat_batch): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if bases.device.type == "cpu":
+        return stat_batch_plain(bases, quals, lengths, include)
+    if bases.device.type == "cuda":
+        return stat_batch_cuda(bases, quals, lengths, include)
+    raise ValueError("stat_batch runs on cpu or cuda, not %s" % bases.device)
+
+
+def stat_batch_plain(bases, quals, lengths, include):
+    """stat_batch in plain PyTorch: the CPU's version and the reference of
+    the CUDA kernel."""
     B, L = bases.shape
     dev = bases.device
     rlen = lengths.to(I32)

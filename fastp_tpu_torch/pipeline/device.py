@@ -61,7 +61,7 @@ from ..ops import merge as merge_ops
 from ..ops import overlap as overlap_ops
 from ..ops import polyx as polyx_ops
 from ..ops import stats as stats_ops
-from ..ops import overlap_cuda
+from ..ops import launches
 from ..ops import trim as trim_ops
 from ..ops.common import I32, device_table, roll_front, scatter_count
 
@@ -851,7 +851,7 @@ class PendingFetch:
 
 # the captures of this process, in order: (key of the graph in its step,
 # seconds of the capture, bytes it added to the card's reserved memory,
-# overlap kernel launches per replay, seconds of the warm-up runs)
+# {kernel: launches per replay}, seconds of the warm-up runs)
 graph_log = []
 GRAPH_WARMUPS = 2     # eager runs of a new shape before its capture
 
@@ -864,9 +864,10 @@ class _Graph:
     side of a batch -- the step on views of that buffer, with `accum` the
     batch's sums as one vector, and _for_host -- and its static outputs are
     the packed buffer and that vector.  The eager warm-up runs make what a
-    capture may not (the kernel's library, the ops' lookup tables); their
-    kernel launches and the capture's are not counted, each replay counts
-    the graph's.  A capture that fails raises."""
+    capture may not (the kernels' libraries, the ops' lookup tables); their
+    kernel launches and the capture's are not counted, and `launches` keeps
+    what the capture launched of each kernel, which each replay counts
+    (ops/launches.py).  A capture that fails raises."""
 
     def __init__(self, step, arrays, accum: bool, key):
         io = step.io
@@ -889,10 +890,10 @@ class _Graph:
         self.load(io, arrays)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with overlap_cuda.uncounted() as tally:
+        with launches.uncounted() as tally:
             for _ in range(GRAPH_WARMUPS):
                 device_side()
-            tally[0] = 0
+            tally.update(launches.zero_tally())
             t1 = time.perf_counter()
             reserved = torch.cuda.memory_reserved(io.device)
             self.graph.capture_begin(pool=io.pool,
@@ -904,10 +905,10 @@ class _Graph:
                     self.graph.capture_end()   # the first error stands
                 raise
             self.graph.capture_end()
-        self.sweeps = tally[0]
+        self.launches = dict(tally)
         self.pool_bytes = torch.cuda.memory_reserved(io.device) - reserved
         graph_log.append((key, time.perf_counter() - t1, self.pool_bytes,
-                          self.sweeps, t1 - t0))
+                          self.launches, t1 - t0))
 
     def load(self, io, arrays):
         with io.staging():
@@ -965,7 +966,7 @@ class Step:
             else:
                 g.load(io, arrays)
             g.graph.replay()
-        overlap_cuda.count_replayed(g.sweeps)
+        launches.count_replayed(g.launches)
         return g.out
 
     def start_fetch(self, out: StepOut) -> PendingFetch:

@@ -2,7 +2,7 @@
 
 A cold `python -m fastp_tpu_torch` run pays, before its first batch, for
 things that do not depend on the job: the import of torch, the CUDA
-context, the load of the overlap kernel's library and of the native host
+context, the loads of the kernels' libraries and of the native host
 library (and their builds on a fresh tree), the caching allocator's first
 blocks on the card and, with --dedup, the page commit of the Bloom buffers.
 A resident server pays them once: `python -m fastp_tpu_torch serve --socket
@@ -13,10 +13,11 @@ measured on the card.
 
 What `--warm` and `--warm-run` leave warm: `--warm` resolves the device
 (failing at once without a card unless the CPU was asked for), creates the
-CUDA context and launches the overlap kernel once, which builds or loads
-its library; `--warm-run` also runs one representative job with its output
-discarded, which loads the host library, fills the allocator's pool at the
-job's batch shape and commits the pooled Bloom buffers
+CUDA context, builds or loads the libraries of the three kernels
+(overlap_sweep, stat_batch, trim_by_sequence) and launches each once;
+`--warm-run` also runs one representative job with its output discarded,
+which loads the host library, fills the allocator's pool at the job's
+batch shape and commits the pooled Bloom buffers
 (FASTP_TPU_POOL_PREFAULT, set below, read by duplicate.py).  The step of
 a configuration is kept between jobs (pipeline/device.py:memo_step, up to
 16 configurations): its stream, pinned buffers, uploaded adapters and, on
@@ -183,19 +184,27 @@ def claim_socket(sock_path: str) -> socket.socket:
 
 
 def warm_device():
-    """Resolve the server's device and, on a card, create the CUDA context
-    and launch the overlap kernel once, so its library is built and loaded
-    before READY.  Raises where a job would: no card and no request for the
-    CPU."""
+    """Resolve the server's device and, on a card, create the CUDA context,
+    build or load the three kernels' libraries (at once) and launch each
+    kernel once, so that no job pays for them after READY.  Raises where a
+    job would: no card and no request for the CPU."""
     import torch
     from .cli import resolve_device
+    from .ops.adapter import trim_by_sequence
     from .ops.overlap_cuda import sweep_select
+    from .ops.stats import stat_batch
     device = resolve_device()
     if device.type == "cuda":
         torch.cuda.init()
+        from .cuda_build import build_all
+        build_all()
     rows = torch.zeros((1, 32), dtype=torch.uint8, device=device)
     lens = torch.zeros(1, dtype=torch.int32, device=device)
     sweep_select(rows, rows.clone(), lens, lens.clone(), 5, 30, 0.2)
+    stat_batch(rows, rows.clone(), lens, torch.ones(1, dtype=torch.bool,
+                                                    device=device))
+    trim_by_sequence(rows, lens, torch.zeros(8, dtype=torch.uint8,
+                                             device=device))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return device
@@ -275,8 +284,8 @@ def serve_main(args) -> int:
     p = argparse.ArgumentParser(prog="fastp_tpu_torch serve")
     p.add_argument("--socket", required=True, help="unix socket path")
     p.add_argument("--warm", action="store_true",
-                   help="create the CUDA context and load the overlap "
-                        "kernel before READY")
+                   help="create the CUDA context and load and launch the "
+                        "three kernels before READY")
     p.add_argument("--warm-run", default=None, metavar="JSON_ARGV",
                    help="JSON list of the argv (program name first) of a "
                         "representative job to run before READY, after the "

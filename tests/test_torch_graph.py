@@ -5,8 +5,8 @@ On the CPU: the memo (one Step per key, a new one for each environment
 variable a step reads, at most sixteen entries, a second run that starts
 from zero), the port's PE and SE steps against fastp_tpu's with the count
 of valid rows going up as an array (240, 100 and 0 of 256 rows), and the
-overlap kernel's launches counted per replay of a graph, through a stand-in
-for the graph.  On a card (marker `cuda`, skipped here): the graph against
+kernels' launches counted per replay of a graph, through a stand-in for
+the graph.  On a card (marker `cuda`, skipped here): the graph against
 the eager step, every key, a partial batch after a full one, and two
 shards of a split on one device.
 """
@@ -22,7 +22,7 @@ import torch
 
 from fastp_tpu.pipeline import device as j_device
 from fastp_tpu_torch import cli
-from fastp_tpu_torch.ops import overlap_cuda
+from fastp_tpu_torch.ops import launches
 from fastp_tpu_torch.parallel import mesh as t_mesh
 from fastp_tpu_torch.pipeline import device as t_device
 from test_torch_cli import GOLDENS, one_torch_thread  # noqa: F401 (autouse fixture)
@@ -146,28 +146,31 @@ def test_step_matches_jax_at_every_valid_count(paired, nvalid, bench_cfg,
 
 class _StandInGraph:
     """Stands in for pipeline/device.py:_Graph on the CPU: its warm-up runs
-    and its capture each call the overlap kernel twice inside
-    overlap_cuda.uncounted(), and it takes what the capture tallied as the
-    launches the graph holds; a replay runs nothing.  Every instance is
-    kept in `made`."""
+    and its capture each count two overlap_sweep and four stat_batch
+    launches inside launches.uncounted(), and it takes what the capture
+    tallied as the launches the graph holds; a replay runs nothing.  Every
+    instance is kept in `made`."""
 
     made = []
 
     def __init__(self, step, arrays, accum, key):
         self.key = key
-        with overlap_cuda.uncounted() as tally:
+        with launches.uncounted() as tally:
             for _ in range(t_device.GRAPH_WARMUPS):
-                overlap_cuda._count_launch()
-                overlap_cuda._count_launch()
-            self.warm = tally[0]
-            tally[0] = 0
-            overlap_cuda._count_launch()     # the capture
-            overlap_cuda._count_launch()
-            self.sweeps = tally[0]
+                self._launch()
+            self.warm = dict(tally)
+            tally.update(launches.zero_tally())
+            self._launch()                   # the capture
+            self.launches = dict(tally)
         self.out = t_device.StepOut({}, rows=arrays[0].shape[0])
         self.graph = self
         self.loads = self.replays = 0
         _StandInGraph.made.append(self)
+
+    @staticmethod
+    def _launch():
+        for name in ("overlap_sweep",) * 2 + ("stat_batch",) * 4:
+            launches.count(name)
 
     def load(self, io, arrays):
         self.loads += 1
@@ -183,13 +186,18 @@ def test_launches_count_per_replay_and_not_at_capture(monkeypatch,
     step = t_device.build_pe_step(bench_cfg, "cpu")
     step.graph = True                 # the graph path, with the stand-in
     args = (np.zeros((8, 32), np.uint8), np.zeros(8, np.int16), np.int32(8))
-    before = overlap_cuda.sweep_select.launches
+    before = launches.snapshot()
     for _ in range(5):
         step.run(*args, accum=True)
-    # warm-ups and the capture count nothing; each replay counts two
-    assert overlap_cuda.sweep_select.launches == before + 10
+    # warm-ups and the capture count nothing; each replay counts its kernels
+    assert launches.since(before) == {"overlap_sweep": 10, "stat_batch": 20,
+                                      "trim_by_sequence": 0}
     (g,) = _StandInGraph.made
-    assert g.warm == 2 * t_device.GRAPH_WARMUPS and g.sweeps == 2
+    assert g.warm == {"overlap_sweep": 2 * t_device.GRAPH_WARMUPS,
+                      "stat_batch": 4 * t_device.GRAPH_WARMUPS,
+                      "trim_by_sequence": 0}
+    assert g.launches == {"overlap_sweep": 2, "stat_batch": 4,
+                          "trim_by_sequence": 0}
     assert g.replays == 5 and g.loads == 4   # the first batch loads at capture
     # another shape, accum or shard is another graph
     step.run(np.zeros((16, 32), np.uint8), np.zeros(16, np.int16),
@@ -197,10 +205,11 @@ def test_launches_count_per_replay_and_not_at_capture(monkeypatch,
     step.run(*args, accum=False)
     step.run(*args, accum=True, shard=1)
     assert len(_StandInGraph.made) == 4
-    assert overlap_cuda.sweep_select.launches == before + 16
+    assert launches.since(before)["overlap_sweep"] == 16
+    assert launches.since(before)["stat_batch"] == 32
     # outside uncounted() a launch counts at once
-    overlap_cuda._count_launch()
-    assert overlap_cuda.sweep_select.launches == before + 17
+    launches.count("trim_by_sequence")
+    assert launches.since(before)["trim_by_sequence"] == 1
 
 
 def test_a_shard_runs_with_its_index():

@@ -32,6 +32,8 @@ names = [n for n in names if n != "fastp_tpu_torch.__main__"]
 for n in names:
     importlib.import_module(n)
 assert "fastp_tpu_torch.parallel.mesh" in names
+for kernel in ("launches", "stats_cuda", "adapter_cuda", "overlap_cuda"):
+    assert "fastp_tpu_torch.ops." + kernel in names, kernel
 from fastp_tpu_torch import cli
 from fastp_tpu_torch.pipeline.runner import SingleEndProcessor
 root = sys.argv[1]
@@ -113,6 +115,8 @@ def test_import_line_parser():
 def test_no_source_of_the_port_imports_fastp_tpu():
     sources = _port_sources()
     assert len(sources) >= 40
+    for rel in ("ops/launches.py", "ops/stats_cuda.py", "ops/adapter_cuda.py"):
+        assert os.path.join(ROOT, "fastp_tpu_torch", rel) in sources, rel
     bad = []
     for path in sources:
         with open(path) as fh:

@@ -27,7 +27,7 @@ import torch
 from fastp_tpu.ops import overlap as j_overlap
 from fastp_tpu.ops.overlap_pallas import analyze_pallas
 from fastp_tpu_torch.ops import overlap as t_overlap
-from fastp_tpu_torch.ops import overlap_cuda
+from fastp_tpu_torch.ops import launches, overlap_cuda
 from fastp_tpu_torch.ops.common import rc
 from chip_smoke import _adversarial_rows, needed_compares
 from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -388,9 +388,9 @@ def test_needed_compares_counts_the_walk(setting):
 
 def test_wrapper_uses_plain_version_on_cpu():
     s1, l1, s2, l2 = _corpus(6, B=32)
-    before = overlap_cuda.sweep_select.launches
+    before = launches.snapshot()
     _port(s1, l1, s2, l2, 5, 30, 0.2)
-    assert overlap_cuda.sweep_select.launches == before
+    assert launches.snapshot() == before
 
 
 @pytest.mark.cuda
@@ -402,10 +402,10 @@ def test_kernel_matches_plain_on_card():
         s1, l1, s2, l2 = (torch.from_numpy(x).cuda() for x in (s1, l1, s2, l2))
         rc2 = rc(s2, l2).contiguous()
         for setting in ((5, 30, 0.2), (2, 20, 0.1), (5, 30, 0.0)):
-            before = overlap_cuda.sweep_select.launches
+            before = launches.snapshot()
             got = overlap_cuda.sweep_select(s1, rc2, l1, l2, *setting)
             torch.cuda.synchronize()
-            assert overlap_cuda.sweep_select.launches == before + 1
+            assert launches.since(before)["overlap_sweep"] == 1
             want = t_overlap.sweep_select_plain(s1, rc2, l1, l2, *setting)
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu().to(torch.int64), w.cpu().to(torch.int64))

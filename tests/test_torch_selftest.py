@@ -19,7 +19,7 @@ import torch
 
 from fastp_tpu_torch import cli, selftest
 from fastp_tpu_torch.ops import common as t_common
-from fastp_tpu_torch.ops import overlap_cuda
+from fastp_tpu_torch.ops import launches
 # every op module is imported before a test puts a wrong function into
 # ops/common.py: a module imported later would keep the wrong one
 from fastp_tpu_torch.ops import (adapter, correct, merge, overlap,  # noqa: F401
@@ -109,16 +109,16 @@ def test_usage_names_the_other_entry_points():
 
 
 def test_on_the_cpu_the_kernel_is_not_launched():
-    before = overlap_cuda.sweep_select.launches
+    before = launches.snapshot()
     ok, _ = _run_here()
-    assert ok and overlap_cuda.sweep_select.launches == before
+    assert ok and launches.snapshot() == before
 
 
 @pytest.mark.cuda
 def test_on_the_card_the_overlap_checks_launch_the_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    before = overlap_cuda.sweep_select.launches
+    before = launches.snapshot()
     ok, text = _run_here("cuda")
     assert ok, text
-    assert overlap_cuda.sweep_select.launches - before >= 2
+    assert launches.since(before)["overlap_sweep"] >= 2
