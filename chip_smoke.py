@@ -5,9 +5,10 @@
 Phases, in order; each prints one line, and any failure exits non-zero:
   1. device   -- requires CUDA; prints the card's name and power limit
   2. build    -- builds the three kernels from fastp_tpu_torch/csrc
-                 (overlap_sweep, stat_batch, adapter_match: one nvcc each)
-                 and the host library from fastp_tpu_torch/native (g++), all
-                 at once; prints what ptxas reports for each kernel
+                 (overlap_sweep, stat_batch, adapter_match: one nvcc each),
+                 the launch floor's empty kernel (launch_floor) and the
+                 host library from fastp_tpu_torch/native (g++), all at
+                 once; prints what ptxas reports for each kernel
   3. kernel   -- the CUDA overlap kernel against its plain PyTorch version
                  at B=8192, L=160 on bench-like and adversarial rows
                  (exact) at three overlap settings, diff_pct = 0 (the
@@ -26,9 +27,14 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  that are no multiple of a block's rows; adapters of 6, 8,
                  12, 16, 33 and 80 bases at match_req 4, 5 and 6 on rows
                  built to reach the insertion and the deletion fallback);
+                 the scratch workspace of trim_by_sequence (reads of 50,000
+                 bases, an adapter of 2,400), stat_batch at 2 L on the two
+                 mates side by side;
                  at B=8192, L=160 the kernel's device time per launch from
                  CUDA-graph replays, one call between two events, the plain
-                 chain captured as a graph the same way, and the bound
+                 chain captured as a graph the same way, the bound, and the
+                 launch floor (csrc/launch_floor.cu's empty kernel at the
+                 kernel's grid, timed the same way)
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
@@ -151,12 +157,20 @@ Then a JSON line of the walls, one of the graphs' device times, one of the
 seconds each phase took, the card, a JSON line of the three kernels'
 results and, last, the device line.
 
-    python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu]
+    python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu ...]
 
 runs phases 1 to 3 alone (all three kernels); with --old-kernel it also
-builds an earlier version of the overlap kernel's source (same C
-interface), checks it against the plain version and times the two in turns
-(old, new, new, old).
+builds earlier versions of the kernels' sources, each named by its file
+(overlap_sweep*.cu, stat_batch*.cu, adapter_match*.cu, e.g. commit
+1877111's from `git show 1877111:fastp_tpu_torch/csrc/<name>.cu` under
+_archive/), checks
+each against the plain version and times it against the current kernel in
+turns (old, new, new, old): overlap_sweep at two overlap settings,
+stat_batch at L and 2 L, trim_by_sequence on both mates.  The
+stat_batch.cu and adapter_match.cu of commit 1877111 (their C interfaces)
+are launched as their wrappers launched them (the zeroing nodes
+included); a file whose C function takes another count of parameters is
+refused before it is built.
 
     python3 chip_smoke.py --graph-only
 
@@ -184,6 +198,7 @@ The script imports no JAX and nothing of fastp_tpu.
 """
 import argparse
 import contextlib
+import ctypes
 import functools
 import gzip
 import io
@@ -366,10 +381,54 @@ def phase_device():
     return card
 
 
-def phase_build():
-    """nvcc for the three kernels and g++ for the host library, started
-    together."""
+# the C parameters each --old-kernel launcher passes: overlap_sweep's as the
+# current source declares them, stat_batch's and adapter_match's as commit
+# 1877111 declared them (compare_stat_with_old, compare_adapter_with_old)
+OLD_C_PARAMS = {"stat_batch": 10, "adapter_match": 11}
+
+
+def c_param_count(path, name):
+    """The parameters of the extern "C" function `name` that `path`
+    declares (None when it declares none)."""
+    with open(path) as fh:
+        m = re.search(r'extern\s+"C"\s+int\s+%s\s*\(([^)]*)\)' % name,
+                      fh.read())
+    return None if m is None else len(m.group(1).split(","))
+
+
+def old_kernel_sources(paths):
+    """--old-kernel's files by the kernel each is an earlier version of,
+    named by its file: a name that starts with overlap_sweep, stat_batch or
+    adapter_match (e.g. _archive/pr10/stat_batch.cu).  A file whose C
+    function takes another count of parameters than its launcher passes
+    (OLD_C_PARAMS) is refused: it would be called with the wrong
+    signature."""
+    out = {}
+    for path in paths or ():
+        name = next((k for k in cuda_build.KERNEL_LIBS
+                     if os.path.basename(path).startswith(k)), None)
+        check(name is not None and os.path.exists(path),
+              "--old-kernel %s: no such file, or its name does not start "
+              "with one of %s" % (path, ", ".join(cuda_build.KERNEL_LIBS)))
+        check(name not in out, "--old-kernel names two versions of %s" % name)
+        want = OLD_C_PARAMS.get(name) or c_param_count(
+            os.path.join(cuda_build.CSRC, name + ".cu"), name)
+        got = c_param_count(path, name)
+        check(got == want,
+              "--old-kernel %s: its %s takes %s parameters, the launcher "
+              "passes %d (only commit 1877111's stat_batch.cu and "
+              "adapter_match.cu, and an overlap_sweep.cu with the current C "
+              "interface, are accepted)" % (path, name, got, want))
+        out[name] = os.path.abspath(path)
+    return out
+
+
+def phase_build(old=None):
+    """nvcc for the three kernels and the launch floor's empty kernel, for
+    each earlier version that --old-kernel names (as <name>_old), and g++
+    for the host library, all started together."""
     results = {}
+    old = old or {}
 
     def build(key, fn):
         t0 = time.perf_counter()
@@ -378,8 +437,13 @@ def phase_build():
         except Exception as exc:  # re-raised below, in the main thread
             results[key] = (exc, time.perf_counter() - t0)
 
-    threads = [threading.Thread(target=build, args=(key, fn)) for key, fn in (
-        ("kernels", cuda_build.build_all), ("native", native_mod.get_lib))]
+    jobs = [("kernels", lambda: cuda_build.build_all(
+        cuda_build.KERNEL_LIBS + ("launch_floor",))),
+        ("native", native_mod.get_lib)]
+    if old:
+        jobs.append(("old", lambda: cuda_build._build(
+            {name + "_old": path for name, path in old.items()})))
+    threads = [threading.Thread(target=build, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -390,16 +454,21 @@ def phase_build():
     check(results["native"][0] is not None,
           "the host library (fastp_tpu_torch/native) did not build or load")
     built = []
-    for name, sec in results["kernels"][0].items():
+    seconds = dict(results["kernels"][0])
+    seconds.update(results["old"][0] if old else {})
+    for name, sec in seconds.items():
         ptxas = [ln.strip() for ln in
                  cuda_build.build_logs.get(name, "").splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
+        source = old.get(name[:-4]) if name.endswith("_old") else None
         built.append("%s in %.3f s (%s; ptxas: %s)" % (
-            name, sec, os.path.relpath(cuda_build.library_path(name), ROOT),
+            name, sec, os.path.relpath(cuda_build.library_path(name, source),
+                                       ROOT),
             " | ".join(ptxas) or "not built in this process"))
-    print("phase build: at once, all three kernels: %s; the host library in "
-          "%.3f s (%s); all of it %.3f s"
-          % ("; ".join(built), results["native"][1],
+    print("phase build: at once, the three kernels, the launch floor and %d "
+          "earlier version(s): %s; the host library in %.3f s (%s); all of "
+          "it %.3f s"
+          % (len(old), "; ".join(built), results["native"][1],
              os.path.relpath(native_mod._lib_path(), ROOT),
              max(sec for _, sec in results.values())), flush=True)
 
@@ -570,14 +639,47 @@ def _graph_ms(fn, launches=20, replays=15):
     CUDA graph, so that no host gap lies between them; the median over
     `replays` replays between two CUDA events, divided by `launches`.  The
     inputs stay in the L2 cache between launches, as they do in the step,
-    where the ops just before the kernel wrote them."""
-    fn()
+    where the ops just before the kernel wrote them.  The first call runs
+    on the capturing stream, as a step's warm-up does (stat_batch makes its
+    accumulator for that stream then), and the replays run there too, so
+    that no two launches that share an accumulator overlap."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
-    return _median_ms(graph.replay, replays) / launches
+    with torch.cuda.stream(stream):   # the stream whose accumulator it holds
+        return _median_ms(graph.replay, replays) / launches
+
+
+def floor_ms(grid_x, grid_y, threads, cluster=1, smem=0):
+    """The launch floor of a kernel's geometry: csrc/launch_floor.cu's empty
+    kernel at that grid, block, cluster and dynamic shared memory, timed as
+    _graph_ms times the kernels."""
+    fn = cuda_build.load("launch_floor").launch_floor
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        err = fn(grid_x, grid_y, threads, cluster, smem,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, "launch_floor launch failed: CUDA error %d" % err)
+    return _graph_ms(call)
+
+
+def _in_turns(calls):
+    """{name: call} timed with _graph_ms in turns, forward then backward
+    (for two: a, b, b, a).  Returns [(name, ms)] in the order timed."""
+    names = list(calls)
+    return [(n, _graph_ms(calls[n])) for n in names + names[::-1]]
+
+
+def _turns_text(turns):
+    return ", ".join("%s %.4f ms" % t for t in turns)
 
 
 def needed_compares(found, offset, overlap_len, len1, len2, overlap_require):
@@ -667,9 +769,10 @@ def _raw_launcher(fn, tensors, setting, warps):
 
 
 def compare_with_old_kernel(old_source, tensors, want_by_setting):
-    """Builds an earlier version of csrc/overlap_sweep.cu (same C interface,
-    rows of 2 L bytes in shared memory), holds it to the plain version and
-    times it against the current kernel in turns: old, new, new, old."""
+    """Loads an earlier version of csrc/overlap_sweep.cu (same C interface,
+    rows of 2 L bytes in shared memory; built in phase build), holds it to
+    the plain version and times it against the current kernel in turns:
+    old, new, new, old."""
     old_fn = cuda_build.load("overlap_sweep_old", old_source).overlap_sweep
     new_fn = overlap_cuda._kernel()
     old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
@@ -697,7 +800,11 @@ def compare_with_old_kernel(old_source, tensors, want_by_setting):
     return out
 
 
-def phase_kernel(old_source=None):
+def phase_kernel(old=None):
+    """The three kernels against their plain versions, timed, each beside
+    its bound and its launch floor; `old` ({kernel: source}) adds earlier
+    versions, checked and timed against the current ones in turns."""
+    old = old or {}
     rng = np.random.default_rng(42)
     worst = 0
     rows = 0
@@ -727,8 +834,8 @@ def phase_kernel(old_source=None):
                         *tensors, *setting)),
                     "plain_ms": _median_ms(lambda: sweep_select_plain(
                         *tensors, *setting))}
-        if name == "bench" and old_source:
-            compare_with_old_kernel(old_source, tensors, wants)
+        if name == "bench" and "overlap_sweep" in old:
+            compare_with_old_kernel(old["overlap_sweep"], tensors, wants)
         if name == "bench":
             # as the batch loop launches it: from a worker thread, on a
             # side stream
@@ -748,6 +855,11 @@ def phase_kernel(old_source=None):
           "a setting accepted no row: %s" % accepted)
     check(side_stream_launches == len(TIMED_SETTINGS),
           "the kernel was not launched from a worker thread on a side stream")
+    warps = overlap_cuda.rows_per_block(L)
+    overlap_floor = floor_ms(-(-B // warps), 1, 32 * warps, 1,
+                             warps * 2 * overlap_cuda.padded_row_bytes(L))
+    for t in timing.values():
+        t["floor_ms"] = overlap_floor
     edge = []
     for rows_n, width in EDGE_SHAPES:
         tensors = tuple(torch.from_numpy(x).cuda() for x in
@@ -766,12 +878,13 @@ def phase_kernel(old_source=None):
           % (rows, accepted, ", ".join(edge), side_stream_launches, worst, B,
              L, "; ".join(
               "diff_pct %s kernel %.4f ms of device time per launch (CUDA-"
-              "graph replays of 20 launches, median of 15), %.4f ms for one "
+              "graph replays of 20 launches, median of 15; launch floor "
+              "%.4f ms), %.4f ms for one "
               "call between two events, plain %.4f ms (median of 25); needs "
               "%d byte compares (%d at whole overlaps) and %d bytes, so "
               "bound %.5f ms by %s (bytes %.5f ms at %.2f TB/s, operations "
               "%.5f ms at %.1f T byte compares/s), kernel at %.1f%% of it"
-              % (pct, t["ms"], t["call_ms"], t["plain_ms"],
+              % (pct, t["ms"], t["floor_ms"], t["call_ms"], t["plain_ms"],
                  bounds[pct]["compares_needed"],
                  bounds[pct]["compares_at_whole_overlaps"],
                  bounds[pct]["bytes"], bounds[pct]["bound_ms"],
@@ -780,8 +893,9 @@ def phase_kernel(old_source=None):
                  PEAK_BYTE_COMPARES_PER_S / 1e12,
                  100.0 * bounds[pct]["bound_ms"] / t["ms"])
               for pct, t in timing.items())), flush=True)
-    return worst, timing, bounds, {"stat_batch": kernel_stats(rng),
-                                   "trim_by_sequence": kernel_adapter(rng)}
+    return worst, timing, bounds, {
+        "stat_batch": kernel_stats(rng, old.get("stat_batch")),
+        "trim_by_sequence": kernel_adapter(rng, old.get("adapter_match"))}
 
 
 def _bench_reads(rng):
@@ -859,11 +973,59 @@ def _time_three(kernel, plain):
             "plain_eager_ms": _median_ms(plain, runs=10)}
 
 
-def kernel_stats(rng):
+def _old_stat_call(fn, args):
+    """Commit 1877111's stat_batch as its wrapper launched it: the zeroed output (a
+    node of its own), then the kernel at that wrapper's geometry (about 264
+    blocks of chunks of rows).  Returns (call, output buffer)."""
+    bases, quals, lengths, include = stats_cuda.kernel_inputs(*args)
+    Bn, Ln = bases.shape
+    tiles = max(1, -(-Ln // 32))
+    chunks = max(1, min(-(-Bn // 8), 264 // tiles))
+    rows = min(-(-Bn // chunks), 1023 * 8)
+    chunks = -(-Bn // rows)
+    out = torch.zeros(stats_cuda.out_size(Ln), dtype=torch.int64,
+                      device=bases.device)
+
+    def call():
+        out.zero_()
+        err = fn(bases.data_ptr(), quals.data_ptr(), lengths.data_ptr(),
+                 include.data_ptr(), Bn, Ln, rows, chunks, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, "old stat_batch launch failed: CUDA error %d" % err)
+    return call, out
+
+
+def compare_stat_with_old(old_source, timed):
+    """Commit 1877111's csrc/stat_batch.cu (built in phase build) held to the plain
+    version and timed against the current kernel in turns, old, new, new,
+    old, on each of `timed` ({what: args})."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.load("stat_batch_old", old_source).stat_batch
+    fn.argtypes, fn.restype = [p] * 4 + [i] * 4 + [p, p], ctypes.c_int
+    out = {}
+    for what, args in timed.items():
+        call, buf = _old_stat_call(fn, args)
+        call()
+        torch.cuda.synchronize()
+        _max_abs_err(stats_cuda.split_output(buf, args[0].shape[1]),
+                     stat_batch_plain(*args), "stat_batch old build " + what)
+        out[what] = _in_turns({
+            "old": call, "new": lambda: stats_cuda.stat_batch_cuda(*args)})
+    print("old stat_batch (%s) against the new one, device time per launch "
+          "from CUDA-graph replays of 20 launches, in turns: %s"
+          % (os.path.relpath(old_source, ROOT), "; ".join(
+              "%s: %s" % (what, _turns_text(t)) for what, t in out.items())),
+          flush=True)
+    return out
+
+
+def kernel_stats(rng, old_source=None):
     """csrc/stat_batch.cu against stat_batch_plain on the card, bit-equal:
     the bench reads of both mates, then stat_rows at (B, L) and at
     STAT_SHAPES, each with its include mask and with none; B = 0 launches
-    nothing.  Times the kernel at the main path's shape."""
+    nothing.  Times the kernel at the main path's shape beside its launch
+    floor; with `old_source` (commit 1877111's
+    source) also that build, at L and at 2 L (the merged reads' width)."""
     cases, worst = [], 0
     bench = _bench_reads(rng)
     for mate, (bases, quals, lens) in enumerate(bench):
@@ -875,8 +1037,13 @@ def kernel_stats(rng):
                       (b, q, ln, inc)))
         cases.append(("adversarial B=%d L=%d, include all false"
                       % (rows_n, width), (b, q, ln, np.zeros_like(inc))))
+    # the two mates side by side: the merged reads' width, 2 L
+    wide = (np.hstack([bench[0][0], bench[1][0]]),
+            np.hstack([bench[0][1], bench[1][1]]),
+            (L + bench[1][2]).astype(np.int32), cases[0][1][3])
+    cases.append(("bench R1 + R2 at L=%d" % (2 * L), wide))
     counted = kernel_launches.snapshot()
-    timing = bound = None
+    timing = bound = old = None
     for what, arrays in cases:
         args = tuple(torch.from_numpy(x).cuda() for x in arrays)
         got = stats_cuda.stat_batch_cuda(*args)
@@ -887,7 +1054,18 @@ def kernel_stats(rng):
             bound = stat_bound(args, want)
             timing = _time_three(lambda: stats_cuda.stat_batch_cuda(*args),
                                  lambda: stat_batch_plain(*args))
+            tiles, chunks, _ = stats_cuda.geometry(B, L)
+            timing["floor_ms"] = floor_ms(tiles, chunks, stats_cuda.THREADS,
+                                          stats_cuda.CLUSTER)
+            timed = {"B=%d L=%d" % (B, L): args}
             counted = kernel_launches.snapshot()
+        if what.startswith("bench R1 + R2") and old_source:
+            timed["B=%d L=%d" % (B, 2 * L)] = args
+    if old_source:
+        before = kernel_launches.snapshot()
+        old = compare_stat_with_old(old_source, timed)
+        counted = {k: v + kernel_launches.since(before)[k]
+                   for k, v in counted.items()}
     check(kernel_launches.since(counted)["stat_batch"] == len(cases) - 1,
           "stat_batch launches: %s for %d calls"
           % (kernel_launches.since(counted), len(cases) - 1))
@@ -902,20 +1080,21 @@ def kernel_stats(rng):
     print("phase kernel: stat_batch == plain, bit-equal on every key, %d "
           "cases (%s), max abs err %d; B=0 launches nothing; B=%d L=%d "
           "(bench R1): kernel %.4f ms of device time per launch (CUDA-graph "
-          "replays of 20 launches), %.4f ms for one call between two events, "
-          "plain chain %.4f ms as a graph (%.4f ms eager); %d bytes, %d "
-          "bases and %d 5-mers counted, %d integer operations, so bound "
-          "%.5f ms by %s (bytes %.5f ms, operations %.5f ms at %.2f T/s), "
-          "kernel at %.1f%% of it"
+          "replays of 20 launches; launch floor %.4f ms), %.4f ms for one "
+          "call between two events, plain chain %.4f ms as a graph (%.4f ms "
+          "eager); %d bytes, %d bases and %d 5-mers "
+          "counted, %d integer operations, so bound %.5f ms by %s (bytes "
+          "%.5f ms, operations %.5f ms at %.2f T/s), kernel at %.1f%% of it"
           % (len(cases), ", ".join(w for w, _ in cases), worst, B, L,
-             timing["ms"], timing["call_ms"], timing["plain_ms"],
-             timing["plain_eager_ms"], bound["bytes"], bound["bases_counted"],
+             timing["ms"], timing["floor_ms"], timing["call_ms"],
+             timing["plain_ms"], timing["plain_eager_ms"],
+             bound["bytes"], bound["bases_counted"],
              bound["kmers_counted"], bound["operations"], bound["bound_ms"],
              bound["bound_by"], bound["bytes_ms"], bound["operations_ms"],
              PEAK_INT32_OPS_PER_S / 1e12,
              100.0 * bound["bound_ms"] / timing["ms"]), flush=True)
     return {"max_abs_err": worst, "timing": timing, "bound": bound,
-            "cases": len(cases)}
+            "cases": len(cases), "old": old}
 
 
 def adapter_compares(bases, lengths, adapter, match_req):
@@ -1007,14 +1186,55 @@ def adapter_bound(rows, lens, adapter, match_req, want):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def kernel_adapter(rng):
+def compare_adapter_with_old(old_source, timed):
+    """Commit 1877111's csrc/adapter_match.cu (built in phase build), as its wrapper
+    launched it (found and pos zeroed, a node each, then the kernel), held
+    to the plain version and timed against the current kernel in turns,
+    old, new, new, old, on each of `timed` ({what: (rows, lengths,
+    adapter)})."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.load("adapter_match_old", old_source).adapter_match
+    fn.argtypes, fn.restype = [p] * 3 + [i] * 4 + [p] * 4, ctypes.c_int
+    out = {}
+    for what, (rows, rl, ad) in timed.items():
+        Bn, Ln = rows.shape
+        rl32 = rl.to(torch.int32).contiguous()
+        outs = (torch.empty(Bn, dtype=torch.int32, device=rows.device),
+                torch.zeros(Bn, dtype=torch.bool, device=rows.device),
+                torch.zeros(Bn, dtype=torch.int32, device=rows.device))
+
+        def call():
+            outs[1].zero_()
+            outs[2].zero_()
+            err = fn(rows.data_ptr(), rl32.data_ptr(), ad.data_ptr(), Bn, Ln,
+                     int(ad.shape[0]), 4, *(o.data_ptr() for o in outs),
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, "old adapter_match launch failed: CUDA error %d"
+                  % err)
+        call()
+        torch.cuda.synchronize()
+        _max_abs_err(outs, trim_by_sequence_plain(rows, rl, ad, 4),
+                     "trim_by_sequence old build " + what)
+        out[what] = _in_turns({"old": call, "new": lambda: (
+            adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, 4))})
+    print("old trim_by_sequence (%s) against the new one, device time per "
+          "launch from CUDA-graph replays of 20 launches, in turns: %s"
+          % (os.path.relpath(old_source, ROOT), "; ".join(
+              "%s: %s" % (what, _turns_text(t)) for what, t in out.items())),
+          flush=True)
+    return out
+
+
+def kernel_adapter(rng, old_source=None):
     """csrc/adapter_match.cu against trim_by_sequence_plain on the card,
     bit-equal: the bench reads of each mate with its bench adapter, then
     adapter_rows for adapters of ADAPTER_LENGTHS bases at MATCH_REQS and
-    ADAPTER_SHAPES; a short adapter launches nothing.  Times the kernel on
-    the bench reads, both adapters."""
+    ADAPTER_SHAPES, and reads and adapters too long for shared memory (the
+    scratch workspace); a short adapter launches nothing.  Times the kernel
+    on the bench reads, both adapters, beside its launch floor; with
+    `old_source` (commit 1877111's source) also that build, in turns."""
     worst, n_cases = 0, 0
-    timing, bounds = {}, {}
+    timing, bounds, timed = {}, {}, {}
     counted = kernel_launches.snapshot()
     for mate, (bases, _, lens) in enumerate(_bench_reads(rng)):
         rows = torch.from_numpy(bases).cuda()
@@ -1032,6 +1252,10 @@ def kernel_adapter(rng):
         timing[mate] = _time_three(
             lambda: adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, 4),
             lambda: trim_by_sequence_plain(rows, rl, ad, 4))
+        g = adapter_cuda.geometry(B, L, int(ad.shape[0]))
+        timing[mate]["floor_ms"] = floor_ms(g["blocks"], 1, 32 * g["warps"],
+                                            1, g["block_bytes"])
+        timed["bench R%d" % (mate + 1)] = (rows, rl, ad)
         counted = {k: v + kernel_launches.since(before)[k]
                    for k, v in counted.items()}
     for alen in ADAPTER_LENGTHS:
@@ -1050,12 +1274,37 @@ def kernel_adapter(rng):
                     got, want, "trim_by_sequence alen=%d match_req=%d B=%d "
                     "L=%d" % (alen, req, rows_n, width)))
                 n_cases += 1
+    # workspaces past shared memory (scratch in device memory): reads of
+    # 50,000 bases, an adapter of 2,400
+    for rows_n, width, alen in ((40, 50000, 33), (8, 64, 2400)):
+        a = random_adapter(rng, alen)
+        bases, lens = adapter_rows(rng, rows_n, width, a)
+        check(not adapter_cuda.geometry(rows_n, width, alen)["staged"],
+              "B=%d L=%d alen=%d fits shared memory" % (rows_n, width, alen))
+        rows = torch.from_numpy(bases).cuda()
+        rl = torch.from_numpy(lens).cuda()
+        ad = torch.from_numpy(a.copy()).cuda()
+        got = adapter_cuda.trim_by_sequence_cuda(rows, rl, ad, 4)
+        torch.cuda.synchronize()
+        worst = max(worst, _max_abs_err(
+            got, trim_by_sequence_plain(rows, rl, ad, 4), "trim_by_sequence "
+            "alen=%d B=%d L=%d (scratch workspace)" % (alen, rows_n, width)))
+        n_cases += 1
     short = sum(1 for alen in ADAPTER_LENGTHS for req in MATCH_REQS
                 if alen < req) * len(ADAPTER_SHAPES)
     check(kernel_launches.since(counted)["trim_by_sequence"] == n_cases - short,
           "trim_by_sequence launches: %s for %d calls, %d with an adapter "
           "shorter than match_req" % (kernel_launches.since(counted), n_cases,
                                       short))
+    old = None
+    if old_source:
+        before = kernel_launches.snapshot()
+        old = compare_adapter_with_old(old_source, timed)
+        counted = {k: v + kernel_launches.since(before)[k]
+                   for k, v in counted.items()}
+        check(kernel_launches.since(counted)["trim_by_sequence"]
+              == n_cases - short, "trim_by_sequence launches after the old "
+              "build's timing: %s" % kernel_launches.since(counted))
     ms = {k: float(np.mean([timing[m][k] for m in timing]))
           for k in timing[0]}
     bound_ms = float(np.mean([bounds[m]["bound_ms"] for m in bounds]))
@@ -1064,10 +1313,12 @@ def kernel_adapter(rng):
           "B x L %s, rows built to reach the insertion and the deletion "
           "fallback), max abs err %d; B=%d L=%d (bench R1, R2 with their "
           "adapters): kernel %s ms of device time per launch (CUDA-graph "
-          "replays of 20 launches), %s ms for one call between two events, "
+          "replays of 20 launches; launch floor %s ms), %s ms for one call "
+          "between two events, "
           "plain chain %s ms as a graph (%s ms eager); bounds %s"
           % (n_cases, ADAPTER_LENGTHS, MATCH_REQS, ADAPTER_SHAPES, worst, B,
              L, ", ".join("%.4f" % timing[m]["ms"] for m in timing),
+             ", ".join("%.4f" % timing[m]["floor_ms"] for m in timing),
              ", ".join("%.4f" % timing[m]["call_ms"] for m in timing),
              ", ".join("%.4f" % timing[m]["plain_ms"] for m in timing),
              ", ".join("%.4f" % timing[m]["plain_eager_ms"] for m in timing),
@@ -1075,7 +1326,8 @@ def kernel_adapter(rng):
     return {"max_abs_err": worst, "timing": ms, "per_mate": timing,
             "bounds": bounds, "bound": {
                 "bound_ms": bound_ms,
-                "bound_by": bounds[0]["bound_by"]}, "cases": n_cases}
+                "bound_by": bounds[0]["bound_by"]}, "cases": n_cases,
+            "old": old}
 
 
 def phase_golden(work):
@@ -2779,9 +3031,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel-only", action="store_true",
                         help="phases device, build and kernel alone")
-    parser.add_argument("--old-kernel", metavar="OLD.cu",
-                        help="an earlier version of csrc/overlap_sweep.cu to "
-                             "check and time beside the current one")
+    parser.add_argument("--old-kernel", metavar="OLD.cu", nargs="+",
+                        help="earlier versions of csrc/overlap_sweep.cu, "
+                             "stat_batch.cu or adapter_match.cu (named by "
+                             "file) to check and time beside the current "
+                             "ones")
     parser.add_argument("--turns", nargs=2, metavar=("VAR=VALUE", "ROUNDS"),
                         help="phases device and build, then the 1M-pair main "
                              "path without and with VAR=VALUE in the "
@@ -2795,7 +3049,8 @@ def main(argv=None):
                              "and from this one, in turns, a process each")
     args = parser.parse_args(argv)
     card = phase_device()
-    phase_build()
+    old = old_kernel_sources(args.old_kernel)
+    phase_build(old)
     if args.against:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
@@ -2820,7 +3075,7 @@ def main(argv=None):
         return 0
     launches = {}
     if args.kernel_only:
-        worst, timing, bounds, new_kernels = phase_kernel(args.old_kernel)
+        worst, timing, bounds, new_kernels = phase_kernel(old)
     else:
         os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
@@ -2828,7 +3083,7 @@ def main(argv=None):
             corpus = _start_corpus(work)
             try:
                 worst, timing, bounds, new_kernels = _timed(
-                    "kernel", phase_kernel, args.old_kernel)
+                    "kernel", phase_kernel, old)
                 _timed("golden", phase_golden, work)
                 r1, r2 = _timed("corpus_wait", _finish_corpus, corpus)
             finally:
@@ -2894,12 +3149,13 @@ def main(argv=None):
                 "launches": launches.get("main", {}).get(name),
                 "launches_per_path": per_path(name),
                 "max_abs_err": result["max_abs_err"], "ms": t["ms"],
+                "floor_ms": t["floor_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"],
                 "share_of_bound": bound["bound_ms"] / t["ms"],
                 "library_ms": None, "library_ms_why": why,
                 "call_ms": t["call_ms"], "plain_eager_ms": t["plain_eager_ms"],
-                "cases": result["cases"]}
+                "cases": result["cases"], "old_in_turns": result["old"]}
 
     print(json.dumps({"kernels": [{
         "name": "overlap_sweep", "route": "cuda",
@@ -2907,7 +3163,8 @@ def main(argv=None):
         "replaces": "fastp_tpu/ops/overlap_pallas.py:26",
         "launches": launches.get("main", {}).get("overlap_sweep"),
         "launches_per_path": per_path("overlap_sweep"),
-        "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "max_abs_err": worst, "ms": t["ms"], "floor_ms": t["floor_ms"],
+        "plain_ms": t["plain_ms"],
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "share_of_bound": bound["bound_ms"] / t["ms"],
         "library_ms": None,

@@ -740,15 +740,28 @@ def run(argv, device=None) -> dict:
         names, cards = launcher_devices(device)
         rc = _spawn_local_shards(argv, n_local, parsed[1], names, cards)
         return {"rc": rc, "local_processes": n_local}
-    from .parallel import multihost
-    from .parallel.mesh import init_distributed, make_mesh
-    from .pipeline.pe_runner import PairEndProcessor
-    from .pipeline.runner import SingleEndProcessor
+    from .parallel.mesh import (init_distributed, make_mesh,
+                                shutdown_distributed)
     requested = resolve_devices(device)
     # the devices of the split, before anything is read or written
     devices = make_mesh(parsed[1].deviceCount, requested)
     opt = prepare_options(argv, parsed)
     init_distributed()  # a no-op unless the torch.distributed variables are set
+    try:
+        result = _run_processor(argv, opt, devices, t1)
+    except BaseException:
+        shutdown_distributed(barrier=False)   # a failed rank leaves at once
+        raise
+    shutdown_distributed()   # a no-op without a group
+    return result
+
+
+def _run_processor(argv, opt, devices, t1):
+    """The run proper, once the devices are known and any process group
+    has started: shard options, the processor, the logs."""
+    from .parallel import multihost
+    from .pipeline.pe_runner import PairEndProcessor
+    from .pipeline.runner import SingleEndProcessor
     if multihost.active():
         # this process's byte ranges of the input and its output names
         multihost.shard_options(opt)

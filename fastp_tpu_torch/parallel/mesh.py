@@ -14,12 +14,17 @@ launches the overlap kernel (ops/overlap_cuda.py) on its own device and
 stream.
 
 init_distributed starts the exchange between shards of one job on several
-hosts (parallel/multihost.py) over torch.distributed.
+hosts (parallel/multihost.py) over torch.distributed; shutdown_distributed
+ends it (after a run that succeeded a barrier, then destroy_process_group),
+at the end of cli.run and, for a process that never gets there, at
+interpreter exit.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import os
+import sys
 
 import numpy as np
 import torch
@@ -60,7 +65,41 @@ def init_distributed() -> bool:
     # latch only after success so a transient failure of the rendezvous can
     # be retried by a later job in the same (resident) process
     _dist_initialized = True
+    atexit.unregister(_shutdown_at_exit)   # once, however many groups
+    atexit.register(_shutdown_at_exit)
     return True
+
+
+def shutdown_distributed(barrier: bool = True) -> bool:
+    """End the group init_distributed started: with `barrier`, a barrier,
+    so that no rank leaves while another still sends; then
+    destroy_process_group, so that no gloo thread outlives the interpreter
+    (a rank that exits with a live group can abort with "terminate called
+    without an active exception").  A rank that failed passes
+    barrier=False and leaves at once: its peers see the connection drop at
+    their next collective instead of waiting up to DIST_TIMEOUT_S for it.
+    Returns whether there was a group; a second call is a no-op."""
+    global _dist_initialized
+    if not _dist_initialized:
+        return False
+    import torch.distributed as dist
+    _dist_initialized = False
+    if not dist.is_initialized():
+        return True
+    try:
+        if barrier:
+            dist.barrier()   # the group's timeout: DIST_TIMEOUT_S
+    except RuntimeError:  # a peer that failed: still tear this one down
+        pass
+    finally:
+        dist.destroy_process_group()
+    return True
+
+
+def _shutdown_at_exit():
+    # the interpreter sets sys.last_value for an uncaught exception before
+    # it runs the atexit hooks: a process that dies of one skips the barrier
+    shutdown_distributed(barrier=getattr(sys, "last_value", None) is None)
 
 
 def process_group():

@@ -889,6 +889,9 @@ class _Graph:
 
         self.load(io, arrays)
         t0 = time.perf_counter()
+        # the stream the graph replays on: stat_batch's accumulator belongs
+        # to it (ops/stats_cuda.py:accumulator)
+        self.stream = torch.cuda.current_stream(io.device)
         self.graph = torch.cuda.CUDAGraph()
         with launches.uncounted() as tally:
             for _ in range(GRAPH_WARMUPS):
@@ -965,6 +968,9 @@ class Step:
                 g = self._graphs[key] = _Graph(self, arrays, accum, key)
             else:
                 g.load(io, arrays)
+            if io.cuda and torch.cuda.current_stream(io.device) != g.stream:
+                raise RuntimeError("a step's CUDA graph replays on the stream "
+                                   "it was captured on")
             g.graph.replay()
         launches.count_replayed(g.launches)
         return g.out

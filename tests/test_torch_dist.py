@@ -239,3 +239,134 @@ def test_a_failed_group_is_an_error_unless_files_are_asked_for(
     t_multihost._exchange_round[0] = 0
     assert t_multihost.allgather_state({"a": 1}, str(tmp_path)) == [{"a": 1}]
     assert "using shared-filesystem stats exchange" in capsys.readouterr().err
+
+
+TEARDOWN_CHILD = r"""
+import os, sys
+import torch.distributed as dist
+log, how = sys.argv[1], sys.argv[2]
+destroy = dist.destroy_process_group
+
+
+def recording(*args, **kw):
+    with open(log, "a") as fh:
+        fh.write("destroyed\n")
+    return destroy(*args, **kw)
+
+
+dist.destroy_process_group = recording
+from fastp_tpu_torch import cli
+from fastp_tpu_torch.parallel import mesh
+if how == "run":
+    cli.run(["fastp_tpu_torch"] + sys.argv[3:], device="cpu")
+    # torn down before cli.run returned
+    assert not dist.is_initialized() and mesh.process_group() is None
+    with open(log, "a") as fh:
+        fh.write("returned\n")
+else:
+    # a process that never reaches cli.run's end: the group goes at exit
+    assert mesh.init_distributed() and dist.is_initialized()
+    with open(log, "a") as fh:
+        fh.write("started\n")
+"""
+
+
+@pytest.mark.parametrize("how", ["run", "exit"])
+def test_every_rank_destroys_its_group_before_exit(tmp_path, how):
+    """Each rank that started a gloo group calls destroy_process_group once:
+    at the end of cli.run, or at interpreter exit when the process started
+    the group some other way (mesh.init_distributed's atexit hook)."""
+    port = free_port()
+    args = (["-i", R1, "-I", R2, "-o", "out1.fq", "-O", "out2.fq"]
+            if how == "run" else [])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TEARDOWN_CHILD, "log.%d" % k, how] + args,
+        cwd=str(tmp_path), env=dist_env(k, 2, port), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for k in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=CHILD_TIMEOUT)
+            assert p.returncode == 0, err[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    first = "destroyed" if how == "run" else "started"
+    for k in range(2):
+        with open(tmp_path / ("log.%d" % k)) as fh:
+            lines = fh.read().split()
+        assert lines == ([first, "returned"] if how == "run"
+                         else [first, "destroyed"]), (k, lines)
+    if how == "run":
+        assert_joined_equals(tmp_path, os.path.join(GOLDENS, "cfg2_pe_default"))
+
+
+FAILING_CHILD = r"""
+import sys
+import torch.distributed as dist
+log, how, rank = sys.argv[1], sys.argv[2], int(sys.argv[3])
+destroy = dist.destroy_process_group
+
+
+def recording(*args, **kw):
+    with open(log, "a") as fh:
+        fh.write("destroyed\n")
+    return destroy(*args, **kw)
+
+
+dist.destroy_process_group = recording
+from fastp_tpu_torch import cli
+from fastp_tpu_torch.parallel import mesh, multihost
+
+
+def fail_early(*args, **kw):
+    raise RuntimeError("rank 1 fails before its first gather")
+
+
+if how == "run":
+    if rank == 1:
+        cli._run_processor = fail_early
+    cli.run(["fastp_tpu_torch"] + sys.argv[4:], device="cpu")
+else:
+    assert mesh.init_distributed()
+    if rank == 1:
+        fail_early()   # uncaught: the atexit hook tears the group down
+    multihost._allgather_bytes_torch(b"rank 0's payload")
+"""
+
+
+@pytest.mark.parametrize("how", ["run", "exit"])
+def test_a_rank_that_fails_does_not_hold_its_peers(tmp_path, how):
+    """A rank that raises after the group started leaves at once (no
+    barrier on the way out), and its peer's next gather fails when the
+    connection drops: both ranks exit with an error well within the
+    group's timeout, and each destroyed its group."""
+    import time
+    port = free_port()
+    args = (["-i", R1, "-I", R2, "-o", "out1.fq", "-O", "out2.fq"]
+            if how == "run" else [])
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", FAILING_CHILD, "log.%d" % k, how, str(k)]
+        + args, cwd=str(tmp_path), env=dist_env(k, 2, port),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(2)]
+    limit = t_mesh.DIST_TIMEOUT_S / 4
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(
+                timeout=max(1.0, limit - (time.monotonic() - t0)))
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert time.monotonic() - t0 < limit
+    assert "rank 1 fails before its first gather" in errs[1], errs[1][-4000:]
+    for k, p in enumerate(procs):
+        assert p.returncode != 0, (k, errs[k][-4000:])
+        with open(tmp_path / ("log.%d" % k)) as fh:
+            assert fh.read().split() == ["destroyed"], (k, errs[k][-4000:])

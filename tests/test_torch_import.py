@@ -7,8 +7,8 @@ parallel/mesh.py among them), runs the cfg3 golden (on one device and split
 over two), the merging cfg5 and the single-end cfg1 goldens through cli.main
 on the CPU, and checks the outputs and that no module of the three was
 loaded.
-A second, static test reads every source file of the port and
-chip_smoke.py and fails on an import line that names fastp_tpu.  A third
+A second, static test reads every source file of the port, chip_smoke.py
+and kernel_variants.py and fails on an import line that names fastp_tpu.  A third
 reads the thin client's path (`__main__.py` up to its import of `.cli`, and
 client.py): it imports the standard library only, so a served job never
 pays for torch or numpy.
@@ -98,7 +98,8 @@ def _imported_names(line):
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "kernel_variants.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "fastp_tpu_torch")):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)
