@@ -4,8 +4,9 @@
 
 Phases, in order; each prints one line, and any failure exits non-zero:
   1. device   -- requires CUDA; prints the card's name and power limit
-  2. build    -- builds the three kernels from fastp_tpu_torch/csrc
-                 (overlap_sweep, stat_batch, adapter_match: one nvcc each),
+  2. build    -- builds the kernels' three libraries from
+                 fastp_tpu_torch/csrc (overlap_sweep with its gapped variant
+                 overlap_gap_sweep, stat_batch, adapter_match: one nvcc each),
                  the launch floor's empty kernel (launch_floor) and the
                  host library from fastp_tpu_torch/native (g++), all at
                  once; prints what ptxas reports for each kernel
@@ -34,7 +35,16 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  CUDA-graph replays, one call between two events, the plain
                  chain captured as a graph the same way, the bound, and the
                  launch floor (csrc/launch_floor.cu's empty kernel at the
-                 kernel's grid, timed the same way)
+                 kernel's grid, timed the same way).  Then the overlap
+                 kernel's gapped variant (--allow_gap_overlap_trimming)
+                 against its plain version, bit-equal on all five outputs:
+                 bench rows and planted one-base insertions and deletions at
+                 forward and backward offsets (gap_rows) at B=8192, L=160,
+                 adversarial rows at the same further shapes, three overlap
+                 settings; the planted rows must give gapped accepts both
+                 ways; timed as the others, beside the plain version as a
+                 graph and eager and the parent's chain for it (the
+                 ungapped kernel, then the plain gapped pass) as a graph
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
@@ -53,7 +63,14 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  launch exactly twice per batch (the analysis and the merge
                  re-analysis), merged.fq is non-empty and the report's
                  merged_and_filtered section counts reads
-  9. cpu      -- the first 20,000 pairs (reads) of phases 5 to 8, of a
+  9. gap      -- the corpus with --allow_gap_overlap_trimming: the overlap
+                 kernel's gapped variant once a batch in place of the
+                 ungapped kernel (PER_BATCH); then, apart from the timed
+                 run, the rows the gapped pass accepts on the corpus's pairs
+                 as read are counted on the card and printed
+                 (tools/make_synth.py plants substitutions only, so there
+                 may be none)
+10. cpu      -- the first 20,000 pairs (reads) of phases 5 to 8, of a
                  --allow_gap_overlap_trimming run, of an SE --adapter_fasta
                  run and of an --interleaved_in --stdout run on the card and
                  on the CPU give identical output files (the last one's
@@ -61,7 +78,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  The CPU runs ask for the CPU with FASTP_TPU_TORCH_DEVICE=cpu;
                  one more run, with the card hidden and no such request, must
                  exit non-zero
- 10. devices  -- the main path at 1M pairs with --devices 2 and the device
+11. devices  -- the main path at 1M pairs with --devices 2 and the device
                  request cuda:0,cuda:0 (both shards of every batch share the
                  one card, so equality is shown and speed is not): files and
                  JSON equal to phase main's, two kernel launches per batch;
@@ -70,11 +87,11 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  at --devices 2 with FASTP_TPU_CORR_K=1 (rows over K take the
                  host's recomputation), each against phase cpu's one-device
                  run on the card
- 11. accum    -- the main and merge paths on 20,000 pairs with
+12. accum    -- the main and merge paths on 20,000 pairs with
                  FASTP_TPU_NO_ACCUM=1 against phase cpu's (accumulating)
                  runs on the card, and the device-to-host bytes per batch
                  both ways
- 12. pipeline -- the pipelined batch loop and the packed transfers at full
+13. pipeline -- the pipelined batch loop and the packed transfers at full
                  size: the 1M-pair main path at FASTP_TPU_PREFETCH 1 and 3 and
                  with FASTP_TPU_NO_INPUT_PACK=1, in turns (1, 3, plain, plain,
                  3, 1), each equal to phase main's files and JSON with exactly
@@ -88,7 +105,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  server runs it, with the thread count before and after; a
                  FASTP_TPU_PROFILE run that leaves a non-empty trace; then
                  the FASTP_TPU_TIMING lines of every 1M-pair run so far
- 13. graph    -- the step as a CUDA graph against the eager step
+14. graph    -- the step as a CUDA graph against the eager step
                  (graph=False) on the card, on the corpus's first 20,000
                  pairs (three batches, the last partial): every batch that
                  the runs queued goes through both again, bit-equal on every
@@ -105,7 +122,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  failed, merge and gap (CUDA events around replays) and its
                  largest device ops by name (one torch.profiler window over
                  three replays)
- 14. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
+15. serve    -- `python -m fastp_tpu_torch serve --warm-run` on the card and
                  jobs through the thin client (FASTP_TPU_SERVER): three
                  20,000-pair jobs of the main path served and the same job
                  once as a cold process, their wall times (no served job
@@ -115,7 +132,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  --dedup job twice, the second equal to the first; `ping`
                  counts the jobs; a second `serve` on the live socket exits
                  non-zero; `shutdown` ends the server and removes the socket
- 15. procs    -- the main path's first 200,000 pairs with --local_processes
+16. procs    -- the main path's first 200,000 pairs with --local_processes
                  2 and 4 on the one card, and as one process of its own: the
                  shards' files in order equal those of the same prefix run in
                  this script's process, the merged JSON too (but for
@@ -130,36 +147,37 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  script's process (cfg5's flags less
                  --overrepresentation_analysis, whose sampling goes by a
                  read's index within its process)
- 16. dist     -- the main path's first 200,000 pairs as two processes that
+17. dist     -- the main path's first 200,000 pairs as two processes that
                  exchange over torch.distributed (gloo on 127.0.0.1,
                  MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; no
                  FASTP_TPU_FS_EXCHANGE),
                  both on the one card: the ranks' files in order equal those
                  of the same prefix run in this script's process, the merged
-                 JSON too (read1/read2_adapter_counts held as in phase 14)
- 17. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
+                 JSON too (read1/read2_adapter_counts held as in phase 15)
+18. batch    -- `python -m fastp_tpu_torch.batch` over a directory of two
                  paired samples and one single-end sample against direct
                  runs of the same arguments (in this script's process);
                  overall.html is written
- 18. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
+19. selftest -- `python -m fastp_tpu_torch test`: every check PASSED, the
                  overlap checks through the kernel at one pair row
- 19. no_card  -- serve --warm, test, --local_processes 2 and the batch
+20. no_card  -- serve --warm, test, --local_processes 2 and the batch
                  runner with the card hidden and no request for the CPU:
                  each exits non-zero and writes nothing (while the self-test's
                  process runs)
-Phases 14 to 19 start the port as a user would, in processes of their own;
+Phases 15 to 20 start the port as a user would, in processes of their own;
 each job there appends each kernel's launches and the kernel libraries it
 loaded to the file that FASTP_TPU_TORCH_LAUNCH_LOG names, emptied just
 before the phase and read just after (the shards in two servers started
 with --warm load none).  The corpus is written by tools/make_synth.py in a process of
 its own while phases 3 and 4 run.
 Then a JSON line of the walls, one of the graphs' device times, one of the
-seconds each phase took, the card, a JSON line of the three kernels'
-results and, last, the device line.
+seconds each phase took, the card, a JSON line of the four kernels'
+results (the gapped variant's launches are those of phase gap) and, last,
+the device line.
 
     python3 chip_smoke.py --kernel-only [--old-kernel OLD.cu ...]
 
-runs phases 1 to 3 alone (all three kernels); with --old-kernel it also
+runs phases 1 to 3 alone (all four kernels); with --old-kernel it also
 builds earlier versions of the kernels' sources, each named by its file
 (overlap_sweep*.cu, stat_batch*.cu, adapter_match*.cu, e.g. commit
 1877111's from `git show 1877111:fastp_tpu_torch/csrc/<name>.cu` under
@@ -189,7 +207,8 @@ setting does to a wall, read within one call.
 
     python3 chip_smoke.py --against CHECKOUT
 
-runs phases 1 and 2 and then the four 1M-pair paths from an earlier
+runs phases 1 and 2 and then the five 1M-pair paths (main, se, failed,
+merge, gap) from an earlier
 checkout of the repository (a directory that holds its fastp_tpu_torch/)
 and from this one, a process each, in turns earlier, this, this, earlier;
 outputs must be equal; prints the walls.
@@ -223,13 +242,16 @@ from fastp_tpu_torch import client  # noqa: E402
 from fastp_tpu_torch import cuda_build  # noqa: E402
 from fastp_tpu_torch import cli  # noqa: E402
 from fastp_tpu_torch.io import native as native_mod  # noqa: E402
+from fastp_tpu_torch.io.fastq import open_batch_reader  # noqa: E402
 from fastp_tpu_torch.ops import adapter_cuda, overlap_cuda, stats_cuda  # noqa: E402
 from fastp_tpu_torch.ops import launches as kernel_launches  # noqa: E402
 from fastp_tpu_torch.parallel import multihost  # noqa: E402
 from fastp_tpu_torch.pipeline import device as step_device  # noqa: E402
+from fastp_tpu_torch.ops.common import rc  # noqa: E402
 from fastp_tpu_torch.ops.adapter import (  # noqa: E402
     _match_with_one_insertion_plain, trim_by_sequence_plain)
 from fastp_tpu_torch.ops.overlap import (COMPLETE_COMPARE_REQUIRE,  # noqa: E402
+                                         _gap_pass, gap_sweep_select_plain,
                                          sweep_select_plain)
 from fastp_tpu_torch.ops.stats import stat_batch_plain  # noqa: E402
 
@@ -272,6 +294,7 @@ B, L = 8192, 160
 # looser one that accepts at other offsets, and the --overlapped_out
 # re-analysis (exact overlaps only)
 OVERLAP_SETTINGS = ((5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0))
+ACGT = np.frombuffer(b"ACGT", np.uint8)
 TIMED_SETTINGS = (OVERLAP_SETTINGS[0], OVERLAP_SETTINGS[2])
 MAIN_PAIRS = 1_000_000
 # the first MID_PAIRS of the corpus: what the phases that start the port in
@@ -314,15 +337,25 @@ BENCH_ADAPTERS = (BENCH_FLAGS[3], BENCH_FLAGS[5])
 # (pipeline/device.py): stat_batch before and after the filters per mate
 # (plus the merged reads on merge), trim_by_sequence per explicit or
 # detected adapter and mate (the SE corpus's adapter is detected), the
-# overlap kernel per analysis; a split launches per shard
+# overlap kernel per analysis, its gapped variant (overlap_gap_sweep) in
+# its place with --allow_gap_overlap_trimming; a split launches per shard
 PER_BATCH = {
-    "main": {"overlap_sweep": 1, "stat_batch": 4, "trim_by_sequence": 2},
-    "se": {"overlap_sweep": 0, "stat_batch": 2, "trim_by_sequence": 1},
-    "failed": {"overlap_sweep": 2, "stat_batch": 4, "trim_by_sequence": 0},
-    "merge": {"overlap_sweep": 2, "stat_batch": 5, "trim_by_sequence": 0},
-    "gap": {"overlap_sweep": 1, "stat_batch": 4, "trim_by_sequence": 0},
-    "devices_2": {"overlap_sweep": 2, "stat_batch": 8, "trim_by_sequence": 4},
+    "main": {"overlap_sweep": 1, "overlap_gap_sweep": 0, "stat_batch": 4,
+             "trim_by_sequence": 2},
+    "se": {"overlap_sweep": 0, "overlap_gap_sweep": 0, "stat_batch": 2,
+           "trim_by_sequence": 1},
+    "failed": {"overlap_sweep": 2, "overlap_gap_sweep": 0, "stat_batch": 4,
+               "trim_by_sequence": 0},
+    "merge": {"overlap_sweep": 2, "overlap_gap_sweep": 0, "stat_batch": 5,
+              "trim_by_sequence": 0},
+    "gap": {"overlap_sweep": 0, "overlap_gap_sweep": 1, "stat_batch": 4,
+            "trim_by_sequence": 0},
+    "devices_2": {"overlap_sweep": 2, "overlap_gap_sweep": 0, "stat_batch": 8,
+                  "trim_by_sequence": 4},
 }
+# the kernels the main path launches: what every job of its entry points
+# (serve, procs, dist) must have launched
+MAIN_KERNELS = tuple(k for k, n in PER_BATCH["main"].items() if n)
 DEVICE_ENV = cli.DEVICE_ENV
 
 
@@ -528,6 +561,49 @@ def _adversarial_rows(rng, B=B, L=L):
     return seq1, rc2, len1, len2
 
 
+def place_overlap(rows, r, a, b, shift, forward, rng):
+    """Row r of rows = (s1, rc2, len1, len2): a on read 1's side, b on
+    rc(read 2)'s, overlapping at offset `shift` (forward, after `shift`
+    random bases of read 1) or -shift (backward, after as many of rc(read
+    2))."""
+    s1, rc2, len1, len2 = rows
+    n, lead = len(a), rng.choice(ACGT, shift)
+    if forward:
+        s1[r, :shift + n] = np.concatenate([lead, a])
+        rc2[r, :n] = b
+        len1[r], len2[r] = shift + n, n
+    else:
+        s1[r, :n] = a
+        rc2[r, :shift + n] = np.concatenate([lead, b])
+        len1[r], len2[r] = n, shift + n
+
+
+def gap_rows(seed, B=48, L=96):
+    """Pairs that overlap with a one-base insertion near the end of the
+    overlap (olen 36..49, four substitutions before it), so that no offset
+    passes the ungapped test and the one-insertion pass accepts.  The
+    extra base sits in read 1 or in rc(read 2), the overlap at a forward or
+    a backward offset.  Returns (s1, len1, s2, len2) as uint8/int32 numpy:
+    read 2, not its reverse complement (rc(s2, len2) is rc2)."""
+    rng = np.random.default_rng(seed)
+    rows = (np.zeros((B, L), np.uint8), np.zeros((B, L), np.uint8),
+            np.zeros(B, np.int32), np.zeros(B, np.int32))
+    for r in range(B):
+        n = int(rng.integers(36, 50))
+        ins = rng.choice(ACGT, n)
+        ins[n - 1] = ACGT[(list(ACGT).index(ins[n - 2]) + 1) % 4]
+        p = n - 2
+        norm = np.concatenate([ins[:p], ins[p + 1:n],
+                               [ACGT[(list(ACGT).index(ins[n - 1]) + 2) % 4]]])
+        for j in rng.choice(p, 4, replace=False):
+            norm[j] = ACGT[(list(ACGT).index(ins[j]) + 1) % 4]
+        a, b = (ins, norm) if r % 2 == 0 else (norm, ins)   # read 1, rc(read 2)
+        place_overlap(rows, r, a, b, int(rng.integers(0, 12)), r % 4 < 2, rng)
+    s1, rc2, len1, len2 = rows
+    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
+    return s1, len1, s2, len2
+
+
 def stat_rows(rng, B, L):
     """Arguments of stat_batch that stress its edges: every byte value as a
     base (with ACGT-rich rows, so that 5-mers count), qualities below 33
@@ -682,53 +758,148 @@ def _turns_text(turns):
     return ", ".join("%s %.4f ms" % t for t in turns)
 
 
-def needed_compares(found, offset, overlap_len, len1, len2, overlap_require):
-    """Byte compares the first-accept walk needs on these rows, reckoned
-    from the plain version's outputs (numpy arrays): every forward offset
-    up to the accepted one, or all of them and then the backward offsets up
-    to the accepted one, or all of both for a row that accepts none.
-    Returns (full, prefix): `full` counts each walked offset at its whole
-    overlap; `prefix` at min(overlap, 50) positions, which decide the accept
-    test, plus the whole overlap once for each accepted row (its diff)."""
+def _limit_of(olen, diff_limit, diff_pct):
+    """The accept test's limit per offset, as the kernel takes it:
+    min(diff_limit, int(float32(olen) * diff_pct))."""
+    oc = np.maximum(olen, 0).astype(np.float32)
+    return np.minimum(diff_limit, (oc * np.float32(diff_pct)).astype(np.int64))
+
+
+def _test_compares(x, y, n, limit, tail):
+    """Byte compares one accept test needs, per row: x[:, i] against y[:, i]
+    for i < n (x and y aligned), up to the first position where the
+    mismatch count passes `limit` (the test has failed there), else all n
+    and `tail` more (the gapped test's two last compares).  A row with
+    n <= 0 compares nothing."""
+    mm = (x != y) & (np.arange(x.shape[1])[None, :] < n[:, None])
+    over = np.cumsum(mm, axis=1, dtype=np.int32) > limit[:, None]
+    return np.where(n <= 0, 0, np.where(over.any(axis=1),
+                                        over.argmax(axis=1) + 1, n + tail))
+
+
+def _walk_compares(rows_np, walked_f, walked_b, setting, gapped):
+    """Byte compares of the accept tests at each row's first walked_f
+    forward and walked_b backward offsets (numpy [B] each), summed: the
+    ungapped test over min(olen, 50) positions, the gapped one over the
+    olen - 2 positions before the overlap's last two and then its two last
+    compares (olen < 3 rejected unread); each stopping where its mismatch
+    count passes the offset's limit (_test_compares)."""
+    seq1, rc2, len1, len2 = rows_np
+    rows_n, width = seq1.shape
+    pad = np.zeros((rows_n, width), np.uint8)
+    x_all, y_all = np.concatenate([seq1, pad], 1), np.concatenate([rc2, pad], 1)
     l1, l2 = len1.astype(np.int64), len2.astype(np.int64)
+    w = width if gapped else min(width, COMPLETE_COMPARE_REQUIRE)
+    total = 0
+    for s in range(max(int(walked_f.max(initial=0)),
+                       int(walked_b.max(initial=0)))):
+        for walked, olen, x, y in (
+                (walked_f, np.minimum(l1 - s, l2), x_all[:, s:s + w],
+                 y_all[:, :w]),
+                (walked_b, np.minimum(l1, l2 - s), x_all[:, :w],
+                 y_all[:, s:s + w])):
+            on = s < walked
+            o = olen[on]
+            n = (np.where(o >= 3, o - 2, 0) if gapped
+                 else np.clip(o, 0, COMPLETE_COMPARE_REQUIRE))
+            total += int(_test_compares(x[on], y[on], n, _limit_of(
+                o, setting[0], setting[2]), 2 if gapped else 0).sum())
+    return total
+
+
+def _walked(hit, offset, len1, len2, overlap_require):
+    """Offsets walked per row, forward and backward, by a first-accept walk
+    that accepted at `offset` where `hit`: every forward offset up to the
+    accepted one, or all of them and then the backward offsets up to the
+    accepted one, or all of both for a row that accepts none.  Offset 0 is
+    shift 0 of the forward walk, or of the backward walk for a row with no
+    forward candidate (the two compare the same bytes)."""
     off = offset.astype(np.int64)
-    n_f = np.maximum(l1 - overlap_require, 0)
-    n_b = np.maximum(l2 - overlap_require, 0)
-    # offset 0 is shift 0 of the forward walk, or of the backward walk for
-    # a row with no forward candidate (the two compare the same bytes)
-    fwd_hit = found & (off >= 0) & (off < n_f)
-    walked_f = np.where(fwd_hit, off + 1, n_f)
-    walked_b = np.where(fwd_hit, 0, np.where(found, 1 - off, n_b))
-    s = np.arange(max(int(n_f.max()), int(n_b.max()), 1))[None, :]
+    n_f = np.maximum(len1.astype(np.int64) - overlap_require, 0)
+    n_b = np.maximum(len2.astype(np.int64) - overlap_require, 0)
+    fwd_hit = hit & (off >= 0) & (off < n_f)
+    return (np.where(fwd_hit, off + 1, n_f),
+            np.where(fwd_hit, 0, np.where(hit, 1 - off, n_b)))
+
+
+def needed_compares(rows_np, found, offset, overlap_len, setting):
+    """Byte compares the first-accept walk needs on these rows (numpy
+    arrays: rows_np as (seq1, rc2, len1, len2), the rest the plain
+    version's outputs) at setting (diff_limit, overlap_require, diff_pct).
+    Returns (full, needed): `full` counts each walked offset at its whole
+    overlap; `needed` each at the min(overlap, 50) positions that decide the
+    accept test, cut where the mismatch count passes the limit, plus the
+    whole overlap once for each accepted row (its diff)."""
+    _, _, len1, len2 = rows_np
+    l1, l2 = len1.astype(np.int64), len2.astype(np.int64)
+    walked_f, walked_b = _walked(found, offset, len1, len2, setting[1])
+    s = np.arange(max(int(walked_f.max(initial=0)),
+                      int(walked_b.max(initial=0)), 1))[None, :]
     olen_f = np.maximum(np.minimum(l1[:, None] - s, l2[:, None]), 0)
     olen_b = np.maximum(np.minimum(l1[:, None], l2[:, None] - s), 0)
-    in_f, in_b = s < walked_f[:, None], s < walked_b[:, None]
-    cap = COMPLETE_COMPARE_REQUIRE
-    full = int((olen_f * in_f).sum() + (olen_b * in_b).sum())
-    prefix = int((np.minimum(olen_f, cap) * in_f).sum()
-                 + (np.minimum(olen_b, cap) * in_b).sum()
-                 + overlap_len.astype(np.int64)[found].sum())
-    return full, prefix
+    full = int((olen_f * (s < walked_f[:, None])).sum()
+               + (olen_b * (s < walked_b[:, None])).sum())
+    needed = (_walk_compares(rows_np, walked_f, walked_b, setting, False)
+              + int(overlap_len.astype(np.int64)[found].sum()))
+    return full, needed
 
 
-def kernel_bound(rows_np, want, overlap_require):
+def kernel_bound(rows_np, want, setting):
     """The least time the card could take for sweep_select on these rows:
     the larger of its bytes (each input read once, each output written once)
     over the memory rate and the byte compares it needs over the integer
     rate.  Returns a dict of the counts and times (ms)."""
     seq1, rc2, len1, len2 = rows_np
     found, offset, ol, diff = (w.cpu().numpy() for w in want)
-    full, prefix = needed_compares(found, offset, ol, len1, len2,
-                                   overlap_require)
+    full, needed = needed_compares(rows_np, found, offset, ol, setting)
     nbytes = (seq1.nbytes + rc2.nbytes + len1.nbytes + len2.nbytes
               + found.nbytes + offset.nbytes + ol.nbytes + diff.nbytes)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = prefix / PEAK_BYTE_COMPARES_PER_S * 1e3
-    return {"bytes": nbytes, "compares_needed": prefix,
+    ops_ms = needed / PEAK_BYTE_COMPARES_PER_S * 1e3
+    return {"bytes": nbytes, "compares_needed": needed,
             "compares_at_whole_overlaps": full, "bytes_ms": bytes_ms,
             "operations_ms": ops_ms,
             "operations_ms_at_whole_overlaps":
                 full / PEAK_BYTE_COMPARES_PER_S * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def gap_needed_compares(rows_np, ungapped, gapped, setting):
+    """Byte compares the gapped variant needs on these rows (numpy arrays:
+    rows_np as for needed_compares, `ungapped` sweep_select's four outputs,
+    `gapped` gap_sweep_select's five): the ungapped walk's (needed_compares'
+    `needed`), then, for each row that walk leaves unaccepted, the gapped
+    accept tests of its gapped walk (_walk_compares: each cut where its
+    mismatch count passes the offset's limit), and the winner's
+    one-insertion difference once, 2 (olen - 1) compares."""
+    found_u, off_u, ol_u = ungapped[:3]
+    _, needed = needed_compares(rows_np, found_u, off_u, ol_u, setting)
+    _, off, ol, _, has_gap = gapped
+    walked_f, walked_b = _walked(has_gap, off, rows_np[2], rows_np[3],
+                                 setting[1])
+    walk = _walk_compares(rows_np, np.where(found_u, 0, walked_f),
+                          np.where(found_u, 0, walked_b), setting, True)
+    winner = (2 * (ol.astype(np.int64) - 1))[has_gap].sum()
+    return int(needed + walk + winner)
+
+
+def gap_bound(rows_np, ungapped, gapped, setting):
+    """The least time the card could take for gap_sweep_select on these
+    rows: the larger of its bytes (each input read once, the five outputs
+    written once) over the memory rate and gap_needed_compares over the
+    integer rate."""
+    seq1, rc2, len1, len2 = rows_np
+    ungapped = [u.cpu().numpy() for u in ungapped]
+    gapped = [g.cpu().numpy() for g in gapped]
+    compares = gap_needed_compares(rows_np, ungapped, gapped, setting)
+    nbytes = (seq1.nbytes + rc2.nbytes + len1.nbytes + len2.nbytes
+              + sum(g.nbytes for g in gapped))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = compares / PEAK_BYTE_COMPARES_PER_S * 1e3
+    return {"bytes": nbytes, "compares_needed": compares,
+            "rows_left_by_the_ungapped_pass": int((~ungapped[0]).sum()),
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -826,7 +997,7 @@ def phase_kernel(old=None):
             rows += B
             accepted[pct] = accepted.get(pct, 0) + int(got[0].sum())
             if name == "bench" and setting in TIMED_SETTINGS:
-                bounds[pct] = kernel_bound(rows_np, want, setting[1])
+                bounds[pct] = kernel_bound(rows_np, want, setting)
                 timing[pct] = {
                     "ms": _graph_ms(lambda: overlap_cuda.sweep_select(
                         *tensors, *setting)),
@@ -894,6 +1065,7 @@ def phase_kernel(old=None):
                  100.0 * bounds[pct]["bound_ms"] / t["ms"])
               for pct, t in timing.items())), flush=True)
     return worst, timing, bounds, {
+        "overlap_gap_sweep": kernel_gap(rng, overlap_floor),
         "stat_batch": kernel_stats(rng, old.get("stat_batch")),
         "trim_by_sequence": kernel_adapter(rng, old.get("adapter_match"))}
 
@@ -1330,6 +1502,105 @@ def kernel_adapter(rng, old_source=None):
             "old": old}
 
 
+def kernel_gap(rng, floor):
+    """csrc/overlap_sweep.cu's gapped variant (overlap_cuda.gap_sweep_select)
+    against gap_sweep_select_plain on the card, bit-equal on all five
+    outputs, one launch counted as overlap_gap_sweep a call: the bench rows
+    and planted one-base insertions and deletions (gap_rows, forward and
+    backward offsets) at B x L, adversarial rows at EDGE_SHAPES, each at
+    OVERLAP_SETTINGS; the planted rows must give gapped accepts at forward
+    and at backward offsets.  Times it on the bench rows and on the planted
+    rows at the gap path's setting, each beside its bound, its launch floor
+    (`floor`: the overlap kernel's grid, which it shares) and the plain
+    version captured as a graph; on the bench rows also the plain version
+    eager and what the parent's step ran in its place (the ungapped kernel,
+    then _gap_pass) as a graph."""
+    cases = [("bench", _bench_rows(rng))]
+    s1, l1, s2, l2 = gap_rows(int(rng.integers(1 << 30)), B=B, L=L)
+    cases.append(("planted", (s1, rc(torch.from_numpy(s2),
+                                      torch.from_numpy(l2)).numpy(), l1, l2)))
+    for rows_n, width in EDGE_SHAPES:
+        cases.append(("adversarial B=%d L=%d" % (rows_n, width),
+                      _adversarial_rows(rng, B=rows_n, L=width)))
+    worst, planted, accepted, timed = 0, {}, {}, {}
+    for what, rows_np in cases:
+        tensors = tuple(torch.from_numpy(x).cuda() for x in rows_np)
+        for setting in OVERLAP_SETTINGS:
+            before = kernel_launches.snapshot()
+            got = overlap_cuda.gap_sweep_select(*tensors, *setting)
+            torch.cuda.synchronize()
+            n = kernel_launches.since(before)
+            check(n["overlap_gap_sweep"] == 1 and n["overlap_sweep"] == 0,
+                  "overlap_gap_sweep %s at %s: launches %s" % (what, setting, n))
+            want = gap_sweep_select_plain(*tensors, *setting)
+            worst = max(worst, _max_abs_err(
+                got, want, "overlap_gap_sweep %s at %s" % (what, setting)))
+            has_gap, offset = got[4], got[1]
+            accepted[what, setting[2]] = int(has_gap.sum())
+            if what == "planted":
+                planted[setting] = (int((has_gap & (offset > 0)).sum()),
+                                    int((has_gap & (offset < 0)).sum()))
+            if what in ("bench", "planted") and setting == OVERLAP_SETTINGS[0]:
+                kernel = functools.partial(overlap_cuda.gap_sweep_select,
+                                           *tensors, *setting)
+                plain = functools.partial(gap_sweep_select_plain, *tensors,
+                                          *setting)
+                t = timed[what] = {
+                    "ms": _graph_ms(kernel), "call_ms": _median_ms(kernel),
+                    "floor_ms": floor,
+                    "plain_ms": _graph_ms(plain, launches=1, replays=5),
+                    "bound": gap_bound(rows_np, sweep_select_plain(
+                        *tensors, *setting), want, setting)}
+                if what == "bench":
+                    def parent():
+                        return _gap_pass(*tensors, *setting, *(
+                            overlap_cuda.sweep_select(*tensors, *setting)))
+                    t["plain_eager_ms"] = _median_ms(plain, runs=3)
+                    t["parent_chain_ms"] = _graph_ms(parent, launches=1,
+                                                     replays=5)
+    fwd, bwd = planted[OVERLAP_SETTINGS[0]]
+    check(fwd > 0 and bwd > 0, "the planted rows gave %d forward and %d "
+          "backward gapped accepts" % (fwd, bwd))
+    timing = timed["bench"]
+    bound = timing.pop("bound")
+
+    def bound_text(b, ms):
+        return ("%d of %d rows left by the ungapped pass; needs %d byte "
+                "compares and %d bytes, so bound %.5f ms by %s (bytes %.5f ms, "
+                "operations %.5f ms), kernel at %.1f%% of it"
+                % (b["rows_left_by_the_ungapped_pass"], B,
+                   b["compares_needed"], b["bytes"], b["bound_ms"],
+                   b["bound_by"], b["bytes_ms"], b["operations_ms"],
+                   100.0 * b["bound_ms"] / ms))
+    print("phase kernel: overlap_gap_sweep == plain, bit-equal on all five "
+          "outputs, %d cases x %d settings (%s), max abs err %d; gapped "
+          "accepts by case and diff_pct: %s; the planted rows' forward and "
+          "backward gapped accepts by setting: %s; B=%d L=%d (bench rows, "
+          "%s): kernel %.4f ms of device time per launch (CUDA-graph replays "
+          "of 20 launches; launch floor %.4f ms), %.4f ms for one call "
+          "between two events; plain version %.4f ms as a graph (%.4f ms "
+          "eager); the parent's step for it (the ungapped kernel, then "
+          "_gap_pass) %.4f ms as a graph; %s"
+          % (len(cases), len(OVERLAP_SETTINGS), ", ".join(w for w, _ in cases),
+             worst, json.dumps({"%s %s" % k: v for k, v in accepted.items()}),
+             json.dumps({str(k): v for k, v in planted.items()}), B, L,
+             OVERLAP_SETTINGS[0], timing["ms"], timing["floor_ms"],
+             timing["call_ms"], timing["plain_ms"], timing["plain_eager_ms"],
+             timing["parent_chain_ms"], bound_text(bound, timing["ms"])),
+          flush=True)
+    p = timed["planted"]
+    print("phase kernel: overlap_gap_sweep on the planted rows (B=%d L=%d, "
+          "%s, %d gapped accepts): kernel %.4f ms of device time per launch "
+          "(CUDA-graph replays of 20 launches), %.4f ms for one call between "
+          "two events; plain version %.4f ms as a graph; %s"
+          % (B, L, OVERLAP_SETTINGS[0], accepted["planted", OVERLAP_SETTINGS[0][2]],
+             p["ms"], p["call_ms"], p["plain_ms"],
+             bound_text(p["bound"], p["ms"])), flush=True)
+    return {"max_abs_err": worst, "timing": timing, "bound": bound,
+            "cases": len(cases) * len(OVERLAP_SETTINGS), "old": None,
+            "planted_gapped_accepts": planted, "planted": p}
+
+
 def phase_golden(work):
     """All goldens at once: one port process each, started together."""
     procs = {}
@@ -1545,6 +1816,57 @@ def phase_merge(work, r1, r2):
              ", ".join("%s %d B" % (f, os.path.getsize(os.path.join(d, f)))
                        for f in files)), flush=True)
     return launches
+
+
+def _gap_accepts_on_reads(r1, r2):
+    """Rows the gapped pass accepts over the corpus, counted apart from the
+    timed run: the pairs as read (before the step's trimming), B at a time,
+    through overlap_cuda.gap_sweep_select at the gap path's setting; its
+    launches are not counted (launches.uncounted)."""
+    readers = [open_batch_reader(f) for f in (r1, r2)]
+    accepted = torch.zeros((), dtype=torch.int64, device="cuda")
+    try:
+        with kernel_launches.uncounted():
+            while True:
+                b1, b2 = (rd.read_batch(B, L) for rd in readers)
+                if b1 is None:
+                    break
+                s1, l1, s2, l2 = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                                  for x in (b1.bases[:b1.n], b1.lengths[:b1.n],
+                                            b2.bases[:b2.n], b2.lengths[:b2.n]))
+                accepted += overlap_cuda.gap_sweep_select(
+                    s1, rc(s2, l2), l1, l2, *OVERLAP_SETTINGS[0])[4].sum()
+    finally:
+        for rd in readers:
+            rd.close()
+    return int(accepted)
+
+
+def phase_gap(work, r1, r2):
+    """The 1M-pair corpus with --allow_gap_overlap_trimming: the overlap
+    kernel's gapped variant once a batch in place of the ungapped kernel;
+    then, untimed, the rows the gapped pass accepts on the corpus's pairs
+    (_gap_accepts_on_reads)."""
+    res, d, wall, launches = _drive(
+        work, "gap", ["-i", r1, "-I", r2, "-o", "out1.fq", "-O",
+                      "out2.fq", *GAP_FLAGS], **TIMING_ON)
+    batches = res["batches"]
+    reads = res["pre1"].reads
+    check(reads == MAIN_PAIRS, "gap run read %d pairs" % reads)
+    check(batches == MAIN_BATCHES, "gap run: %d batches" % batches)
+    _check_per_batch("gap", launches, batches, PER_BATCH["gap"])
+    _nonempty_outputs(d, "gap")
+    after = _reads_after(d)
+    check(0 < after <= 2 * MAIN_PAIRS, "gap run kept %d reads" % after)
+    accepted = _gap_accepts_on_reads(r1, r2)
+    print("phase gap: %d pairs (%s, --batch_size 8192) in %.3f s wall = %.0f "
+          "pairs/s; %d batches, kernel launches %s; %d reads after "
+          "filtering; apart from the run, %d of the corpus's pairs as read "
+          "accepted by the gapped pass (tools/make_synth.py plants "
+          "substitutions, not insertions)"
+          % (reads, " ".join(GAP_FLAGS), wall, reads / wall, batches,
+             _fmt(launches), after, accepted), flush=True)
+    return launches, wall, accepted
 
 
 def _interleave(r1, r2, path, pairs):
@@ -2157,7 +2479,7 @@ def phase_graph(work, r1, r2, pipe_numbers=None):
     device_ms = {name: _graph_device_time(name, recorded[name])
                  for name in ("main_p3", "se", "failed", "merge", "gap")}
     timing = {}
-    for name in ("main", "se", "failed", "merge"):
+    for name in ("main", "se", "failed", "merge", "gap"):
         for line in TIMING_LINES.get(name, []):
             for field in ("produce", "dispatch", "fetch_wait", "wall"):
                 m = re.search(r"\b%s=([0-9.]+)s" % field, line)
@@ -2244,7 +2566,9 @@ def _graph_device_time(name, calls, runs=3):
             "profiled": source, "device_ms_per_batch": busy,
             "top_ops_ms": [(n[:80], round(ms, 5)) for n, ms in ops[:12]],
             "kernels_ms": {k: round(sum(ms for n, ms in ops if k in n), 5)
-                           for k in ("overlap_sweep", "stat_batch_kernel",
+                           for k in ("overlap_sweep_kernel<false>",
+                                     "overlap_sweep_kernel<true>",
+                                     "stat_batch_kernel",
                                      "adapter_match_kernel")}}
 
 
@@ -2586,7 +2910,7 @@ def phase_procs(work, m1, m2, p1, p2):
         check(len(jobs) == n and len({job["pid"] for job in jobs}) == n,
               "--local_processes %d logged %s" % (n, jobs))
         out["procs_%d" % n] = log.totals()
-        check(all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS)
+        check(all(job[k] > 0 for job in jobs for k in MAIN_KERNELS)
               and out["procs_%d" % n]["overlap_sweep"] >= MID_BATCHES,
               "--local_processes %d launched %s for %d batches"
               % (n, jobs, MID_BATCHES))
@@ -2669,7 +2993,7 @@ def _shards_in_servers(d, big, log):
         check(sorted(job["pid"] for job in jobs) == sorted(pids),
               "the shards did not run inside the two servers %s: %s"
               % (pids, jobs))
-        check(all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS),
+        check(all(job[k] > 0 for job in jobs for k in MAIN_KERNELS),
               "a served shard launched no kernel: %s" % jobs)
         check(log.loaded() == [[], []], "the shards in servers started with "
               "--warm loaded kernel libraries: %s" % log.loaded())
@@ -2738,7 +3062,7 @@ def env_turns(work, setting, rounds):
 
 
 def against_parent(work, parent_root):
-    """The four 1M-pair paths as processes of their own from an earlier
+    """The five 1M-pair paths as processes of their own from an earlier
     checkout of this repository (`parent_root`: a directory that holds its
     fastp_tpu_torch package) and from this one, in turns earlier, this,
     this, earlier; each run's files and JSON must equal the first's.  Both
@@ -2751,6 +3075,7 @@ def against_parent(work, parent_root):
         "se": ["-i", r1, "-o", "out.fq"],
         "failed": pe + ["-o", "o1.fq", "-O", "o2.fq", *CFG8_FLAGS],
         "merge": pe + ["-o", "out1.fq", "-O", "out2.fq", *CFG5_FLAGS],
+        "gap": pe + ["-o", "out1.fq", "-O", "out2.fq", *GAP_FLAGS],
     }
     roots = {"earlier": os.path.abspath(parent_root), "this": ROOT}
 
@@ -2835,7 +3160,7 @@ def phase_dist(work, m1, m2):
     wall = time.perf_counter() - t0
     jobs = log.jobs()
     check(len(jobs) == 2 and len({job["pid"] for job in jobs}) == 2
-          and all(job[k] > 0 for job in jobs for k in kernel_launches.KERNELS),
+          and all(job[k] > 0 for job in jobs for k in MAIN_KERNELS),
           "the two ranks logged %s" % jobs)
     launches = log.totals()
     check(launches["overlap_sweep"] >= MID_BATCHES, "the ranks launched %s "
@@ -3095,6 +3420,8 @@ def main(argv=None):
                         "se": _timed("se", phase_se, work, r1),
                         "failed": _timed("failed", phase_failed, work, r1, r2),
                         "merge": _timed("merge", phase_merge, work, r1, r2)}
+            launches["gap"], gap_wall, gap_accepted = _timed(
+                "gap", phase_gap, work, r1, r2)
             short_runs = _timed("cpu", phase_cpu, work, r1, r2)
             launches["gap_%d_pairs" % CPU_PAIRS] = short_runs["gap"][0]
             split = _timed("devices", phase_devices, work, r1, r2, main_wall)
@@ -3114,7 +3441,9 @@ def main(argv=None):
             shards = _timed("procs", phase_procs, work, m1, m2, p1, p2)
             launches["dist_2_ranks"], dist_wall = _timed(
                 "dist", phase_dist, work, m1, m2)
-            walls = {"serve": served.pop("walls"),
+            walls = {"gap": {"wall": gap_wall,
+                             "gapped_accepts": gap_accepted},
+                     "serve": served.pop("walls"),
                      "procs": shards.pop("walls"),
                      "devices": split.pop("walls"), "dist_2_ranks": dist_wall,
                      "d2h_bytes_%d_pairs" % CPU_PAIRS: moved,
@@ -3142,11 +3471,11 @@ def main(argv=None):
         return {path: n[kernel] for path, n in launches.items()
                 if isinstance(n, dict) and kernel in n}
 
-    def entry(name, source, replaces, result, why):
+    def entry(name, source, replaces, result, why, path="main"):
         t, bound = result["timing"], result["bound"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": launches.get("main", {}).get(name),
+                "launches": launches.get(path, {}).get(name),
                 "launches_per_path": per_path(name),
                 "max_abs_err": result["max_abs_err"], "ms": t["ms"],
                 "floor_ms": t["floor_ms"],
@@ -3175,6 +3504,21 @@ def main(argv=None):
         "plain_ms_diff_pct_0": t0["plain_ms"],
         "bound_ms_diff_pct_0": bound0["bound_ms"],
         "share_of_bound_diff_pct_0": bound0["bound_ms"] / t0["ms"]},
+        dict(entry("overlap_gap_sweep", "fastp_tpu_torch/csrc/overlap_sweep.cu",
+                   "fastp_tpu/ops/overlap.py:255", new_kernels["overlap_gap_sweep"],
+                   "no single PyTorch call computes the first offset whose "
+                   "one-insertion difference passes", path="gap"),
+             parent_chain_ms=new_kernels["overlap_gap_sweep"]["timing"][
+                 "parent_chain_ms"],
+             planted_gapped_accepts={str(k): v for k, v in new_kernels[
+                 "overlap_gap_sweep"]["planted_gapped_accepts"].items()},
+             planted_ms=new_kernels["overlap_gap_sweep"]["planted"]["ms"],
+             planted_plain_ms=new_kernels["overlap_gap_sweep"]["planted"][
+                 "plain_ms"],
+             planted_bound_ms=new_kernels["overlap_gap_sweep"]["planted"][
+                 "bound"]["bound_ms"],
+             planted_bound_by=new_kernels["overlap_gap_sweep"]["planted"][
+                 "bound"]["bound_by"]),
         entry("stat_batch", "fastp_tpu_torch/csrc/stat_batch.cu",
               "fastp_tpu/ops/stats.py:26", new_kernels["stat_batch"],
               "no single PyTorch call computes the whole dict of per-cycle "

@@ -68,6 +68,37 @@
 // Persistent blocks, TMA and clusters were not tried: the input is a few
 // megabytes and one wave of blocks (B / 8 = 1024 blocks of 8 warps on 132
 // SMs) covers the batch.
+//
+// The gapped variant (C function overlap_gap_sweep, the kernel's kGap
+// instantiation) also replaces the allow_gap branch of
+// fastp_tpu/ops/overlap.py:_analyze_loop (:255-318): a row that no ungapped
+// offset accepts goes on, with its strings still staged, to the gapped
+// offsets, forward ones (0 .. len1 - overlap_require - 1) before backward
+// ones (0 .. len2 - overlap_require - 1, k = 0 tested again), and takes the
+// first where the one-insertion difference (Matcher::diffWithOneInsertion,
+// `gap_diff`) passes the limit; it is then marked has_gap.  At an offset
+// with overlap olen, cmplen = olen - 1 and limit from olen, gap_diff(ins,
+// norm) is -1 when cmplen < 2 or when accLeft[cmplen - 2] + accRight[cmplen
+// - 1] > limit, else the least accLeft[i - 1] + accRight[i] over 1 <= i <
+// cmplen, with accLeft the prefix count of ins[i] != norm[i] and accRight
+// the suffix count of ins[i + 1] != norm[i] below cmplen.  That least value
+// is at most its term at i = cmplen - 1, the very sum the -1 test bounds,
+// so a gap_diff that is not -1 passes the limit; and accLeft is the same
+// count in both roles (d1 with the seq1 side as ins, d2 with the rc2 side).
+// So an offset is accepted when cmplen >= 2 and
+//   accLeft[cmplen - 2] + min(x[s + cmplen] != y[cmplen - 1],
+//                             y[cmplen] != x[s + cmplen - 1]) <= limit
+// (x the shifted string, y the other): the mismatch count over the first
+// olen - 2 positions, which the gapped rounds take word by word, 32 offsets
+// a round, leaving a round together once every lane's count has passed
+// diff_limit (count_upto), and two byte compares.  The one-insertion
+// difference itself (d1, or d2 where d1 is -1 or over the limit) is taken
+// once per row, at the winning offset, by the whole warp: each lane a run
+// of positions, the prefix of accLeft - prefix(accRight) across the lanes
+// by shuffles, the least value and the sums by warp reductions
+// (gap_diff_warp).  The roles follow the reference, not the sweep's x and
+// y: going forward ins is the shifted seq1, going back it is the unshifted
+// seq1 and the shift sits on rc2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,6 +159,28 @@ __device__ __forceinline__ int count_prefix(const uint32_t* x32, const uint32_t*
   return mm;
 }
 
+// count_prefix for any n >= 0, not only n <= 50: the words run until no
+// lane has more to count with a count within diff_limit.
+__device__ __forceinline__ int count_upto(const uint32_t* x32, const uint32_t* y32,
+                                          int t, int n, int diff_limit) {
+  const int q = t >> 2;
+  const unsigned sh = 8u * (t & 3);
+  int mm = 0;
+  uint32_t lo = n > 0 ? x32[q] : 0u;
+  for (int w = 0;; ++w) {
+    const int left = n - 4 * w;
+    if (left > 0) {
+      const uint32_t hi = x32[q + w + 1];
+      uint32_t d = __funnelshift_r(lo, hi, sh) ^ y32[w];
+      if (left < 4) d &= first_bytes(left);
+      mm += nonzero_bytes(d);
+      lo = hi;
+    }
+    if (!__any_sync(kFullMask, left > 4 && mm <= diff_limit)) break;
+  }
+  return mm;
+}
+
 // First accepted shift s of x against y among 0 <= s < lx - overlap_require,
 // 32 shifts a round: returns true and sets *shift and *olen (warp-uniform).
 __device__ __forceinline__ bool first_accept(const uint32_t* x32, const uint32_t* y32,
@@ -151,6 +204,84 @@ __device__ __forceinline__ bool first_accept(const uint32_t* x32, const uint32_t
     }
   }
   return false;
+}
+
+// first_accept's gapped counterpart: the first shift s < lx - overlap_require
+// of x against y whose overlap (olen = min(lx - s, ly), cmplen = olen - 1)
+// passes the one-insertion test in either role (see the header).
+__device__ __forceinline__ bool first_gap_accept(const uint32_t* x32, const uint32_t* y32,
+                                                 int lx, int ly, int overlap_require,
+                                                 int diff_limit, float diff_pct, int lane,
+                                                 int* shift, int* olen_out) {
+  const uint8_t* x8 = reinterpret_cast<const uint8_t*>(x32);
+  const uint8_t* y8 = reinterpret_cast<const uint8_t*>(y32);
+  const int n_cand = lx - overlap_require;
+  for (int base = 0; base < n_cand; base += 32) {
+    const int s = base + lane;
+    const int olen = min(lx - s, ly);
+    const int cm = olen - 1;
+    const bool cand = s < n_cand && cm >= 2;
+    const int left = count_upto(x32, y32, s, cand ? cm - 1 : 0, diff_limit);
+    // the lesser of the two roles' last compares (accRight[cmplen - 1])
+    const int last =
+        cand ? ((x8[s + cm] != y8[cm - 1]) & (y8[cm] != x8[s + cm - 1])) : 1;
+    const bool accept = cand && left + last <= limit_of(olen, diff_limit, diff_pct);
+    const unsigned votes = __ballot_sync(kFullMask, accept);
+    if (votes) {
+      const int win = base + __ffs(votes) - 1;
+      *shift = win;
+      *olen_out = min(lx - win, ly);
+      return true;
+    }
+  }
+  return false;
+}
+
+// Matcher::diffWithOneInsertion of ins against norm over cmplen positions
+// (ins read at i and i + 1, norm at i), by the whole warp; -1 where no
+// insertion point passes (cmplen < 2, or accLeft[cmplen - 2] +
+// accRight[cmplen - 1] > limit).  With e[j] = (ins[j] != norm[j]) -
+// (ins[j + 1] != norm[j]) and R the count of the second term below cmplen,
+// accLeft[i - 1] + accRight[i] = R + (e[0] + ... + e[i - 1]): each lane walks
+// its own run of positions, a shuffle scan gives each run its start, and
+// warp reductions the least prefix, R and accLeft[cmplen - 2].
+__device__ __forceinline__ int gap_diff_warp(const uint8_t* ins, const uint8_t* norm,
+                                             int cmplen, int limit, int lane) {
+  if (cmplen < 2) return -1;  // warp-uniform
+  const int per = (cmplen + 31) >> 5;
+  const int lo = min(lane * per, cmplen);
+  const int hi = min(lo + per, cmplen);
+  int run = 0, low = 1 << 30, right = 0, left = 0;
+  for (int j = lo; j < hi; ++j) {
+    if (j >= 1) low = min(low, run);
+    const int ml = ins[j] != norm[j];
+    const int mr = ins[j + 1] != norm[j];
+    run += ml - mr;
+    right += mr;
+    if (j < cmplen - 1) left += ml;
+  }
+  int incl = run;  // inclusive scan of the runs' sums over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int least = __reduce_min_sync(kFullMask, incl - run + low);
+  const int accr = __reduce_add_sync(kFullMask, right);
+  const int accl = __reduce_add_sync(kFullMask, left);
+  if (accl + (ins[cmplen] != norm[cmplen - 1]) > limit) return -1;
+  return accr + least;
+}
+
+// The diff of a gapped accept: gap_diff with the seq1 side as ins (d1), or,
+// where that is -1 or over the limit, with the rc2 side as ins (d2).
+__device__ __forceinline__ int gap_diff_of(const uint8_t* seq1_side,
+                                           const uint8_t* rc2_side, int olen,
+                                           int diff_limit, float diff_pct, int lane) {
+  const int limit = limit_of(olen, diff_limit, diff_pct);
+  const int d1 = gap_diff_warp(seq1_side, rc2_side, olen - 1, limit, lane);
+  if (d1 >= 0 && d1 <= limit) return d1;
+  return gap_diff_warp(rc2_side, seq1_side, olen - 1, limit, lane);
 }
 
 // Mismatches x[t + i] != y[i] over i < olen, the words split over the lanes
@@ -184,6 +315,7 @@ __device__ __forceinline__ void stage_row(uint8_t* dst, const uint8_t* src, int 
   }
 }
 
+template <bool kGap>
 __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
                                      const uint8_t* __restrict__ rc2,
                                      const int32_t* __restrict__ len1,
@@ -193,7 +325,8 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
                                      bool* __restrict__ overlapped,
                                      int32_t* __restrict__ offset,
                                      int32_t* __restrict__ overlap_len,
-                                     int32_t* __restrict__ diff) {
+                                     int32_t* __restrict__ diff,
+                                     bool* __restrict__ has_gap) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -228,12 +361,51 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
       df = count_total(b32, a32, shift, ol, lane);
     }
   }
+  bool gapped = false;
+  if (kGap && !found) {
+    gapped = first_gap_accept(a32, b32, l1, l2, overlap_require, diff_limit,
+                              diff_pct, lane, &shift, &ol);
+    if (gapped) {  // ins of d1: the shifted seq1
+      off = shift;
+      df = gap_diff_of(a + shift, b, ol, diff_limit, diff_pct, lane);
+    } else {
+      gapped = first_gap_accept(b32, a32, l2, l1, overlap_require, diff_limit,
+                                diff_pct, lane, &shift, &ol);
+      if (gapped) {  // ins of d1: the unshifted seq1, the shift on rc2
+        off = -shift;
+        df = gap_diff_of(a, b + shift, ol, diff_limit, diff_pct, lane);
+      }
+    }
+    found = gapped;
+  }
   if (lane == 0) {
     overlapped[row] = found;
     offset[row] = found ? off : 0;
     overlap_len[row] = found ? ol : 0;
     diff[row] = found ? df : 0;
+    if (kGap) has_gap[row] = gapped;
   }
+}
+
+template <bool kGap>
+int launch(const void* seq1, const void* rc2, const void* len1, const void* len2,
+           int B, int L, int diff_limit, int overlap_require, float diff_pct,
+           void* overlapped, void* offset, void* overlap_len, void* diff,
+           void* has_gap, int warps_per_block, void* stream) {
+  if (B <= 0) return 0;
+  const int grid = (B + warps_per_block - 1) / warps_per_block;
+  const size_t smem = static_cast<size_t>(warps_per_block) * 2 * row_stride(L);
+  const bool vec = (L & 15) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(seq1) |
+                     reinterpret_cast<uintptr_t>(rc2)) & 15) == 0;
+  overlap_sweep_kernel<kGap><<<grid, warps_per_block * 32, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seq1), static_cast<const uint8_t*>(rc2),
+      static_cast<const int32_t*>(len1), static_cast<const int32_t*>(len2), B, L,
+      diff_limit, overlap_require, diff_pct, vec, static_cast<bool*>(overlapped),
+      static_cast<int32_t*>(offset), static_cast<int32_t*>(overlap_len),
+      static_cast<int32_t*>(diff), static_cast<bool*>(has_gap));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -246,18 +418,20 @@ extern "C" int overlap_sweep(const void* seq1, const void* rc2, const void* len1
                              int overlap_require, float diff_pct,
                              void* overlapped, void* offset, void* overlap_len,
                              void* diff, int warps_per_block, void* stream) {
-  if (B <= 0) return 0;
-  const int grid = (B + warps_per_block - 1) / warps_per_block;
-  const size_t smem = static_cast<size_t>(warps_per_block) * 2 * row_stride(L);
-  const bool vec = (L & 15) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(seq1) |
-                     reinterpret_cast<uintptr_t>(rc2)) & 15) == 0;
-  overlap_sweep_kernel<<<grid, warps_per_block * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq1), static_cast<const uint8_t*>(rc2),
-      static_cast<const int32_t*>(len1), static_cast<const int32_t*>(len2), B, L,
-      diff_limit, overlap_require, diff_pct, vec, static_cast<bool*>(overlapped),
-      static_cast<int32_t*>(offset), static_cast<int32_t*>(overlap_len),
-      static_cast<int32_t*>(diff));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(seq1, rc2, len1, len2, B, L, diff_limit, overlap_require,
+                       diff_pct, overlapped, offset, overlap_len, diff, nullptr,
+                       warps_per_block, stream);
+}
+
+// The gapped variant: the same, then the one-insertion pass over the rows
+// left unaccepted; has_gap (bool[B]) marks the rows it accepted.
+extern "C" int overlap_gap_sweep(const void* seq1, const void* rc2, const void* len1,
+                                 const void* len2, int B, int L, int diff_limit,
+                                 int overlap_require, float diff_pct,
+                                 void* overlapped, void* offset, void* overlap_len,
+                                 void* diff, void* has_gap, int warps_per_block,
+                                 void* stream) {
+  return launch<true>(seq1, rc2, len1, len2, B, L, diff_limit, overlap_require,
+                      diff_pct, overlapped, offset, overlap_len, diff, has_gap,
+                      warps_per_block, stream);
 }

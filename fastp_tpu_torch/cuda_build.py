@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the port's kernels: csrc/<name>.cu, each with a C entry point <name>
+# the port's kernel libraries: csrc/<name>.cu, each with a C entry point
+# <name> (overlap_sweep.cu also with overlap_gap_sweep, its gapped variant)
 KERNEL_LIBS = ("overlap_sweep", "stat_batch", "adapter_match")
 
 _lock = threading.Lock()
@@ -102,14 +103,15 @@ def load(name: str, source: str = None) -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, argtypes):
-    """The C entry point `name` of library `name`, its argument types set
-    and its result an int (the CUDA error of the launch): built and loaded
-    at the first call, the same object after that."""
+def function(name: str, argtypes, lib: str = None):
+    """The C entry point `name` of library `lib` (default: `name`), its
+    argument types set and its result an int (the CUDA error of the
+    launch): built and loaded at the first call, the same object after
+    that."""
     with _lock:
         fn = _fns.get(name)
     if fn is None:
-        fn = getattr(load(name), name)
+        fn = getattr(load(lib or name), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         with _lock:

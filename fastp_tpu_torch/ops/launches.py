@@ -1,10 +1,11 @@
 """Launch counts of the port's hand-written CUDA kernels, one tally for all.
 
-Each wrapper -- ops/overlap_cuda.py (overlap_sweep), ops/stats_cuda.py
-(stat_batch) and ops/adapter_cuda.py (trim_by_sequence) -- calls
-`count(name)` once where it launches its kernel, and nowhere else.  The
-counts are a plain dict, `counts`, keyed by kernel; launches come from
-worker threads, so it changes under a lock.
+Each wrapper -- ops/overlap_cuda.py (overlap_sweep and its gapped variant
+overlap_gap_sweep, two C functions of csrc/overlap_sweep.cu),
+ops/stats_cuda.py (stat_batch) and ops/adapter_cuda.py (trim_by_sequence)
+-- calls `count(name)` once where it launches its kernel, and nowhere
+else.  The counts are a plain dict, `counts`, keyed by kernel; launches
+come from worker threads, so it changes under a lock.
 
 A step captured as a CUDA graph (pipeline/device.py:_Graph) calls the
 wrappers during its warm-up runs and its capture, which are no batch: it
@@ -17,7 +18,8 @@ from __future__ import annotations
 import contextlib
 import threading
 
-KERNELS = ("overlap_sweep", "stat_batch", "trim_by_sequence")
+KERNELS = ("overlap_sweep", "overlap_gap_sweep", "stat_batch",
+           "trim_by_sequence")
 
 counts = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()

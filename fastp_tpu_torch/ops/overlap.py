@@ -13,7 +13,9 @@ hand-written kernel (ops/overlap_cuda.py); `sweep_select_plain` below is its
 plain PyTorch version, used for CPU tensors and as the kernel's reference.
 With `allow_gap` the rows left unaccepted then go through the reference's
 one-insertion pass (Matcher::diffWithOneInsertion), forward offsets before
-backward, in plain PyTorch on either device (`_gap_pass`).
+backward: on a CUDA tensor in the same kernel's gapped variant, whose plain
+version is `gap_sweep_select_plain` (`sweep_select_plain`, then
+`_gap_pass`), for CPU tensors and as that variant's reference.
 """
 from __future__ import annotations
 
@@ -123,7 +125,9 @@ def _gap_pass(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
     """The allow_gap loops of fastp_tpu/ops/overlap.py:_analyze_loop over
     every forward, then every backward offset: a row not yet accepted takes
     the first offset where the one-insertion diff passes the limit, and is
-    marked has_gap.  Returns (found, offset, overlap_len, diff, has_gap)."""
+    marked has_gap.  Returns (found, offset, overlap_len, diff, has_gap).
+    Half of the gapped kernel's plain version (gap_sweep_select_plain): the
+    card runs it only there, as the kernel's reference."""
     B, L = seq1.shape
     n_off = L - overlap_require if L > overlap_require else 0
     z = torch.zeros_like(seq1)
@@ -154,25 +158,38 @@ def _gap_pass(seq1, rc2, len1, len2, diff_limit: int, overlap_require: int,
     return found, offset, ol, diff, has_gap
 
 
+def gap_sweep_select_plain(seq1, rc2, len1, len2, diff_limit: int,
+                           overlap_require: int, diff_pct: float):
+    """Plain PyTorch version of the gapped CUDA kernel, same signature: the
+    ungapped sweep and selection, then the one-insertion pass over the rows
+    left unaccepted.  Returns (overlapped bool[B], offset, overlap_len,
+    diff int32[B], has_gap bool[B])."""
+    found, offset, ol, diff = sweep_select_plain(
+        seq1, rc2, len1, len2, diff_limit, overlap_require, diff_pct)
+    return _gap_pass(seq1, rc2, len1, len2, diff_limit, overlap_require,
+                     diff_pct, found, offset, ol, diff)
+
+
 def analyze(seq1, len1, seq2, len2, diff_limit: int, overlap_require: int,
             diff_pct: float, allow_gap: bool = False):
     """Batched OverlapAnalysis::analyze.
 
     seq1/seq2: uint8[B, L] windowed reads; len1/len2: int32[B].
     Returns dict(overlapped bool[B], offset int32[B], overlap_len int32[B],
-                 diff int32[B], has_gap bool[B]).  The ungapped pass is the
-    overlap kernel on the card; `allow_gap` adds the one-insertion pass."""
-    from .overlap_cuda import sweep_select
+                 diff int32[B], has_gap bool[B]).  On the card one launch
+    of the overlap kernel, of its gapped variant with `allow_gap` (the
+    one-insertion pass over the rows the ungapped pass left)."""
+    from .overlap_cuda import gap_sweep_select, sweep_select
     len1 = len1.to(I32).contiguous()
     len2 = len2.to(I32).contiguous()
     seq1 = seq1.contiguous()
     rc2 = rc(seq2, len2).contiguous()
-    found, offset, ol, diff = sweep_select(
-        seq1, rc2, len1, len2, diff_limit, overlap_require, diff_pct)
-    has_gap = torch.zeros_like(found)
     if allow_gap:
-        found, offset, ol, diff, has_gap = _gap_pass(
-            seq1, rc2, len1, len2, diff_limit, overlap_require, diff_pct,
-            found, offset, ol, diff)
+        found, offset, ol, diff, has_gap = gap_sweep_select(
+            seq1, rc2, len1, len2, diff_limit, overlap_require, diff_pct)
+    else:
+        found, offset, ol, diff = sweep_select(
+            seq1, rc2, len1, len2, diff_limit, overlap_require, diff_pct)
+        has_gap = torch.zeros_like(found)
     return {"overlapped": found, "offset": offset, "overlap_len": ol,
             "diff": diff, "has_gap": has_gap}

@@ -13,8 +13,9 @@ measured on the card.
 
 What `--warm` and `--warm-run` leave warm: `--warm` resolves the device
 (failing at once without a card unless the CPU was asked for), creates the
-CUDA context, builds or loads the libraries of the three kernels
-(overlap_sweep, stat_batch, trim_by_sequence) and launches each once;
+CUDA context, builds or loads the kernels' three libraries and launches
+each kernel once (overlap_sweep, its gapped variant overlap_gap_sweep,
+stat_batch, trim_by_sequence);
 `--warm-run` also runs one representative job with its output discarded,
 which loads the host library, fills the allocator's pool at the job's
 batch shape and commits the pooled Bloom buffers
@@ -185,13 +186,13 @@ def claim_socket(sock_path: str) -> socket.socket:
 
 def warm_device():
     """Resolve the server's device and, on a card, create the CUDA context,
-    build or load the three kernels' libraries (at once) and launch each
+    build or load the kernels' three libraries (at once) and launch each
     kernel once, so that no job pays for them after READY.  Raises where a
     job would: no card and no request for the CPU."""
     import torch
     from .cli import resolve_device
     from .ops.adapter import trim_by_sequence
-    from .ops.overlap_cuda import sweep_select
+    from .ops.overlap_cuda import gap_sweep_select, sweep_select
     from .ops.stats import stat_batch
     device = resolve_device()
     if device.type == "cuda":
@@ -201,6 +202,7 @@ def warm_device():
     rows = torch.zeros((1, 32), dtype=torch.uint8, device=device)
     lens = torch.zeros(1, dtype=torch.int32, device=device)
     sweep_select(rows, rows.clone(), lens, lens.clone(), 5, 30, 0.2)
+    gap_sweep_select(rows, rows.clone(), lens, lens.clone(), 5, 30, 0.2)
     stat_batch(rows, rows.clone(), lens, torch.ones(1, dtype=torch.bool,
                                                     device=device))
     trim_by_sequence(rows, lens, torch.zeros(8, dtype=torch.uint8,
@@ -285,7 +287,7 @@ def serve_main(args) -> int:
     p.add_argument("--socket", required=True, help="unix socket path")
     p.add_argument("--warm", action="store_true",
                    help="create the CUDA context and load and launch the "
-                        "three kernels before READY")
+                        "four kernels before READY")
     p.add_argument("--warm-run", default=None, metavar="JSON_ARGV",
                    help="JSON list of the argv (program name first) of a "
                         "representative job to run before READY, after the "

@@ -190,14 +190,16 @@ def test_launches_count_per_replay_and_not_at_capture(monkeypatch,
     for _ in range(5):
         step.run(*args, accum=True)
     # warm-ups and the capture count nothing; each replay counts its kernels
-    assert launches.since(before) == {"overlap_sweep": 10, "stat_batch": 20,
+    assert launches.since(before) == {"overlap_sweep": 10,
+                                      "overlap_gap_sweep": 0, "stat_batch": 20,
                                       "trim_by_sequence": 0}
     (g,) = _StandInGraph.made
     assert g.warm == {"overlap_sweep": 2 * t_device.GRAPH_WARMUPS,
+                      "overlap_gap_sweep": 0,
                       "stat_batch": 4 * t_device.GRAPH_WARMUPS,
                       "trim_by_sequence": 0}
-    assert g.launches == {"overlap_sweep": 2, "stat_batch": 4,
-                          "trim_by_sequence": 0}
+    assert g.launches == {"overlap_sweep": 2, "overlap_gap_sweep": 0,
+                          "stat_batch": 4, "trim_by_sequence": 0}
     assert g.replays == 5 and g.loads == 4   # the first batch loads at capture
     # another shape, accum or shard is another graph
     step.run(np.zeros((16, 32), np.uint8), np.zeros(16, np.int16),

@@ -1,6 +1,8 @@
 """The port's two kernels for XLA ops, stat_batch (csrc/stat_batch.cu) and
-trim_by_sequence (csrc/adapter_match.cu), and the launch tally of all
-three kernels (fastp_tpu_torch/ops/launches.py).
+trim_by_sequence (csrc/adapter_match.cu), and the launch tally of all the
+port's kernels (fastp_tpu_torch/ops/launches.py; the overlap kernel's
+models are in tests/test_torch_overlap.py, its gapped variant's check on
+the card here).
 
 The plain versions (ops/stats.py:stat_batch_plain,
 ops/adapter.py:trim_by_sequence_plain), the kernels' references, are held
@@ -809,7 +811,8 @@ def test_the_tally_counts_each_kernel_once_per_call():
     for name in launches.KERNELS:
         launches.count(name)
     launches.count("stat_batch")
-    assert launches.since(before) == {"overlap_sweep": 1, "stat_batch": 2,
+    assert launches.since(before) == {"overlap_sweep": 1,
+                                      "overlap_gap_sweep": 1, "stat_batch": 2,
                                       "trim_by_sequence": 1}
 
 
@@ -822,11 +825,13 @@ def test_uncounted_launches_are_tallied_and_replays_counted():
             launches.count("stat_batch")
         assert inner["stat_batch"] == 1
         launches.count("stat_batch")
-    assert tally == {"overlap_sweep": 0, "stat_batch": 2, "trim_by_sequence": 1}
+    assert tally == {"overlap_sweep": 0, "overlap_gap_sweep": 0,
+                     "stat_batch": 2, "trim_by_sequence": 1}
     assert launches.snapshot() == before           # nothing counted
     for _ in range(3):
         launches.count_replayed(tally)
-    assert launches.since(before) == {"overlap_sweep": 0, "stat_batch": 6,
+    assert launches.since(before) == {"overlap_sweep": 0,
+                                      "overlap_gap_sweep": 0, "stat_batch": 6,
                                       "trim_by_sequence": 3}
 
 
@@ -923,5 +928,32 @@ def test_adapter_kernel_matches_plain_on_card(alen, match_req):
         got = adapter_cuda.trim_by_sequence_cuda(rows, lens, a, match_req)
         torch.cuda.synchronize()
         want = t_adapter.trim_by_sequence_plain(rows, lens, a, match_req)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", [(5, 30, 0.2), (3, 10, 0.1), (5, 30, 0.0)])
+def test_gap_kernel_matches_plain_on_card(setting):
+    """The overlap kernel's gapped variant against gap_sweep_select_plain,
+    every output bit-equal, one launch counted as overlap_gap_sweep: planted
+    insertions, adversarial rows at the bench width, the PE251 width and a
+    width no multiple of 16."""
+    _card()
+    from chip_smoke import _adversarial_rows, gap_rows
+    from fastp_tpu_torch.ops import overlap as t_overlap
+    from fastp_tpu_torch.ops import overlap_cuda
+    from fastp_tpu_torch.ops.common import rc
+    s1, l1, s2, l2 = gap_rows(20, B=512)
+    cases = [(s1, rc(T(s2), T(l2)).numpy(), l1, l2)]
+    for B, L in ((8197, 160), (37, 256), (101, 120)):
+        cases.append(_adversarial_rows(np.random.default_rng(B), B=B, L=L))
+    for seq1, rc2, len1, len2 in cases:
+        args = [T(x).cuda() for x in (seq1, rc2, len1, len2)]
+        before = launches.snapshot()
+        got = overlap_cuda.gap_sweep_select(*args, *setting)
+        torch.cuda.synchronize()
+        assert launches.since(before)["overlap_gap_sweep"] == 1
+        want = t_overlap.gap_sweep_select_plain(*args, *setting)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())

@@ -2,9 +2,12 @@
 
 The plain sweep+select (fastp_tpu_torch.ops.overlap.sweep_select_plain, the
 CUDA kernel's reference) is held exactly to fastp_tpu's sequential-offset
-loop and to its Pallas kernel run in interpret mode; the gapped analysis
-(--allow_gap_overlap_trimming) to the loop's allow_gap branch, on rows with
-planted one-base insertions among others; the float32 acceptance limit is
+loop and to its Pallas kernel run in interpret mode; the plain gapped
+version (gap_sweep_select_plain, the reference of the kernel's gapped
+variant, --allow_gap_overlap_trimming) to the loop's allow_gap branch on
+every key, has_gap included, on rows with planted one-base insertions,
+rows where d1 is -1 and d2 accepts, overlaps of 50 and 51, cmplen < 2 and a
+width below overlap_require among others; the float32 acceptance limit is
 checked as a table; the CUDA kernel itself is checked against the plain
 version on the card (skipped without one).
 
@@ -14,11 +17,18 @@ unaligned fetch from two aligned words, the carry-trick byte count, the
 mask of the last word, the 50-position prefix that ends two bytes into
 word 12, the round that ends once every lane's count has passed diff_limit,
 32 offsets a round with the lowest set bit of the ballot winning, forward
-rounds before backward, the full count split over the lanes), and
-the model is held exactly to the plain version and to fastp_tpu's loop on
-chip_smoke.py's adversarial rows.  A read outside a staged row raises in
-the model, where the kernel would read another row's bytes.
+rounds before backward, the full count split over the lanes; with
+`gap`, the gapped rounds' word-wise count over cmplen - 1 positions with
+its early exit and the two last compares, and the one-insertion difference
+at the winner as the warp takes it, a run of positions a lane and a scan
+across lanes), and the model is held exactly to the plain versions and to
+fastp_tpu's loop on chip_smoke.py's adversarial rows; a hypothesis test
+holds the gapped accept test and the warp's difference to _gap_diff.  A
+read outside a staged row raises in the model, where the kernel would read
+another row's bytes.
 """
+import itertools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -29,7 +39,9 @@ from fastp_tpu.ops.overlap_pallas import analyze_pallas
 from fastp_tpu_torch.ops import overlap as t_overlap
 from fastp_tpu_torch.ops import launches, overlap_cuda
 from fastp_tpu_torch.ops.common import rc
-from chip_smoke import _adversarial_rows, needed_compares
+from chip_smoke import (ACGT, _adversarial_rows, gap_needed_compares,
+                        gap_rows, needed_compares, place_overlap)
+from hypothesis import given, settings, strategies as st
 from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KEYS = ("overlapped", "offset", "overlap_len", "diff")
@@ -93,42 +105,6 @@ def _dirty(seed, B=96, L=160):
     return s1, len1, s2, len2
 
 
-def gap_rows(seed, B=48, L=96):
-    """Pairs that overlap with a one-base insertion near the end of the
-    overlap (olen 36..49, four substitutions before it), so that no offset
-    passes the ungapped test and the one-insertion pass accepts.  The
-    extra base sits in read 1 or in rc(read 2), the overlap at a forward or
-    a backward offset.  Returns (s1, len1, s2, len2) as uint8/int32 numpy."""
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    s1 = np.zeros((B, L), np.uint8)
-    rc2 = np.zeros((B, L), np.uint8)
-    len1 = np.zeros(B, np.int32)
-    len2 = np.zeros(B, np.int32)
-    for r in range(B):
-        n = int(rng.integers(36, 50))
-        ins = rng.choice(acgt, n)
-        ins[n - 1] = acgt[(list(acgt).index(ins[n - 2]) + 1) % 4]
-        p = n - 2
-        norm = np.concatenate([ins[:p], ins[p + 1:n],
-                               [acgt[(list(acgt).index(ins[n - 1]) + 2) % 4]]])
-        for j in rng.choice(p, 4, replace=False):
-            norm[j] = acgt[(list(acgt).index(ins[j]) + 1) % 4]
-        a, b = (ins, norm) if r % 2 == 0 else (norm, ins)   # read 1, rc(read 2)
-        shift = int(rng.integers(0, 12))
-        lead = rng.choice(acgt, shift)
-        if r % 4 < 2:      # forward offset `shift`
-            s1[r, :shift + n] = np.concatenate([lead, a])
-            rc2[r, :n] = b
-            len1[r], len2[r] = shift + n, n
-        else:              # backward offset -shift
-            s1[r, :n] = a
-            rc2[r, :shift + n] = np.concatenate([lead, b])
-            len1[r], len2[r] = n, shift + n
-    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
-    return s1, len1, s2, len2
-
-
 def _port(s1, l1, s2, l2, dl, req, pct, allow_gap=False):
     return t_overlap.analyze(torch.from_numpy(s1), torch.from_numpy(l1),
                              torch.from_numpy(s2), torch.from_numpy(l2),
@@ -183,22 +159,154 @@ def test_float32_limit_table(pct):
         t_overlap.diff_limit_of(torch.from_numpy(olen), 1000, pct).numpy(), wide)
 
 
-@pytest.mark.parametrize("rows", ["corpus", "dirty", "gap"])
+def _next(x, k=1):
+    return ACGT[(np.searchsorted(ACGT, x) + k) % 4]
+
+
+# the kinds of gap_edge_rows, eight rows each: (d1 is -1, overlap length)
+EDGE_KINDS = ((True, 40), (True, 51), (False, 50), (False, 51), (False, 36),
+              (False, 50))
+
+
+def gap_edge_rows(seed=13, L=96):
+    """Gapped accepts at their edges, eight rows of each EDGE_KINDS entry,
+    forward and backward.  "d1 is -1": seq1's side a and rc2's side b agree
+    but for 5 (= the limit) substitutions before the overlap's last two
+    bases, then a ends "AC" and b "GA": accLeft[cmplen - 2] + accRight[cmplen
+    - 1] is 6 with seq1 as ins and 5 with rc2 as ins, so d1 is -1 and d2
+    accepts.  Otherwise a one-base insertion two bases before the overlap's
+    end, in either read, with 5 substitutions before it; at olen 51 the
+    ungapped test reads the insertion's position as its 50th.  Returns
+    (s1, len1, s2, len2, want) with want = (offset, overlap_len) per row."""
+    rng = np.random.default_rng(seed)
+    B = 8 * len(EDGE_KINDS)
+    rows = (np.zeros((B, L), np.uint8), np.zeros((B, L), np.uint8),
+            np.zeros(B, np.int32), np.zeros(B, np.int32))
+    want = []
+    for r in range(B):
+        d1_minus, n = EDGE_KINDS[r // 8]
+        if d1_minus:
+            a = rng.choice(ACGT, n)
+            b = a.copy()
+            subs = rng.choice(n - 2, 5, replace=False)
+            b[subs] = _next(a[subs])
+            a[n - 2:], b[n - 2:] = np.frombuffer(b"AC", np.uint8), \
+                np.frombuffer(b"GA", np.uint8)
+        else:
+            ins = rng.choice(ACGT, n)
+            ins[n - 1] = _next(ins[n - 2])
+            p = n - 2
+            norm = np.concatenate([ins[:p], ins[p + 1:], [_next(ins[n - 1], 2)]])
+            subs = rng.choice(p, 5, replace=False)
+            norm[subs] = _next(ins[subs])
+            a, b = (ins, norm) if r % 4 < 2 else (norm, ins)
+        forward = r % 2 == 0
+        shift = int(rng.integers(0 if forward else 1, 12))
+        place_overlap(rows, r, a, b, shift, forward, rng)
+        want.append((shift if forward else -shift, n))
+    s1, rc2, len1, len2 = rows
+    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
+    return s1, len1, s2, len2, np.array(want)
+
+
+def tiny_overlap_rows(L=24):
+    """For overlap_require 0, where offsets with an overlap of one or two
+    bases (cmplen < 2) are tried: rows of A against C (nothing passes at
+    any offset), one gapped accept at cmplen 2 (ACG against AGT) and random
+    rows, lengths 0 to L."""
+    rng = np.random.default_rng(14)
+    B = 16
+    s1 = rng.choice(ACGT, (B, L))
+    rc2 = rng.choice(ACGT, (B, L))
+    len1 = rng.integers(0, L + 1, B).astype(np.int32)
+    len2 = rng.integers(0, L + 1, B).astype(np.int32)
+    for r in range(6):
+        s1[r], rc2[r] = ord("A"), ord("C")
+        len1[r], len2[r] = r + 1, (r + 1, 3, 1, 6, 2, 2)[r]
+    s1[6, :3], rc2[6, :3] = np.frombuffer(b"ACG", np.uint8), \
+        np.frombuffer(b"AGT", np.uint8)
+    len1[6] = len2[6] = 3
+    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
+    return s1, len1, s2, len2
+
+
+def narrow_rows(L=24):
+    """Exact full-length overlaps at a width no larger than
+    overlap_require: no offset is tried, nothing is accepted."""
+    rng = np.random.default_rng(15)
+    s1 = rng.choice(ACGT, (16, L))
+    len1 = np.full(16, L, np.int32)
+    s2 = rc(torch.from_numpy(s1), torch.from_numpy(len1)).numpy()
+    return s1, len1, s2, len1.copy()
+
+
+GAP_CASES = {
+    "corpus": (lambda: _corpus(9, L=96), (5, 30, 0.2)),
+    "dirty": (lambda: _dirty(10, B=48), (5, 30, 0.2)),
+    "gap": (lambda: gap_rows(11), (5, 30, 0.2)),
+    "edges": (lambda: gap_edge_rows()[:4], (5, 30, 0.2)),
+    "tiny_overlaps": (tiny_overlap_rows, (5, 0, 0.2)),
+    "narrow": (narrow_rows, (5, 30, 0.2)),
+}
+
+
+@pytest.mark.parametrize("rows", list(GAP_CASES))
 def test_gapped_matches_analyze_loop(rows):
-    """The ungapped pass plus the one-insertion pass against the loop's
-    allow_gap branch, every key including has_gap."""
-    s1, l1, s2, l2 = {"corpus": lambda: _corpus(9, L=96),
-                      "dirty": lambda: _dirty(10, B=48),
-                      "gap": lambda: gap_rows(11)}[rows]()
-    want = j_overlap._analyze_loop(s1, l1, s2, l2, 5, 30, 0.2, True)
-    _same(_port(s1, l1, s2, l2, 5, 30, 0.2, allow_gap=True), want,
+    """The plain gapped version (the kernel's signature) against the loop's
+    allow_gap branch, every key including has_gap; analyze with allow_gap
+    gives the same on the CPU."""
+    make, setting = GAP_CASES[rows]
+    s1, l1, s2, l2 = make()
+    want = j_overlap._analyze_loop(s1, l1, s2, l2, *setting, True)
+    rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2))
+    got = dict(zip(KEYS + ("has_gap",), t_overlap.gap_sweep_select_plain(
+        torch.from_numpy(s1), rc2, torch.from_numpy(l1), torch.from_numpy(l2),
+        *setting)))
+    _same(got, want, KEYS + ("has_gap",))
+    _same(_port(s1, l1, s2, l2, *setting, allow_gap=True), want,
           KEYS + ("has_gap",))
+    has_gap = np.asarray(want["has_gap"])
     if rows == "gap":   # the planted insertions are found only with a gap
-        has_gap = np.asarray(want["has_gap"])
         assert has_gap.sum() > len(has_gap) // 2
         assert (np.asarray(want["offset"])[has_gap] < 0).any()
-        assert not np.asarray(_port(s1, l1, s2, l2, 5, 30, 0.2)[
+        assert not np.asarray(_port(s1, l1, s2, l2, *setting)[
             "overlapped"]).any()
+    if rows == "edges":   # each row at its planted offset, with a gap
+        edge = gap_edge_rows()[4]
+        assert has_gap.all()
+        assert np.array_equal(np.asarray(want["offset"]), edge[:, 0])
+        assert np.array_equal(np.asarray(want["overlap_len"]), edge[:, 1])
+    if rows == "tiny_overlaps":
+        assert not np.asarray(want["overlapped"])[:6].any()
+        assert has_gap[6] and int(want["overlap_len"][6]) == 3
+    if rows == "narrow":
+        assert not np.asarray(want["overlapped"]).any()
+
+
+def test_edge_rows_take_d2_where_d1_is_minus_one():
+    """gap_edge_rows' first kind at its winning alignment: gap_diff with
+    seq1 as ins is -1, with rc2 as ins it passes, and the diff is the
+    latter."""
+    s1, l1, s2, l2, edge = gap_edge_rows()
+    rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2)).numpy()
+    got = gap_sweep_select_plain_np(s1, rc2, l1, l2, 5, 30, 0.2)
+    for r in range(16):
+        off, n = (int(x) for x in edge[r])
+        a = s1[r, max(off, 0):max(off, 0) + n]
+        b = rc2[r, max(-off, 0):max(-off, 0) + n]
+        one = lambda x, y: int(t_overlap._gap_diff(   # noqa: E731
+            torch.from_numpy(x[None]), torch.from_numpy(y[None]),
+            torch.tensor([n - 1], dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int32))[0])
+        assert one(a, b) == -1
+        assert 0 <= one(b, a) <= 5 and one(b, a) == got["diff"][r]
+
+
+def gap_sweep_select_plain_np(seq1, rc2, len1, len2, *setting):
+    return {k: v.numpy() for k, v in zip(
+        KEYS + ("has_gap",), t_overlap.gap_sweep_select_plain(
+            *(torch.from_numpy(x) for x in (seq1, rc2, len1, len2)),
+            *setting))}
 
 
 U32 = np.uint32
@@ -227,15 +335,16 @@ def _first_bytes(n):
     return ((np.uint64(1) << (8 * n).astype(np.uint64)) - np.uint64(1)).astype(U32)
 
 
-def _count_prefix(x32, y32, t, n, dl):
+def _count_prefix(x32, y32, t, n, dl, words=13):
     """count_prefix of the kernel for the 32 lanes of a warp: shifts t,
-    lengths 0 <= n <= 50.  Lanes with n == 0 read nothing; the warp leaves
-    the loop once no lane both has words left and a count within dl."""
+    lengths 0 <= n <= 50 (count_upto with words=None: any n >= 0).  Lanes
+    with n == 0 read nothing; the warp leaves the loop once no lane both has
+    words left and a count within dl."""
     q, sh = t >> 2, 8 * (t & 3)
     mm = np.zeros(len(t), np.int64)
     lo = np.zeros(len(t), U32)
     lo[n > 0] = x32[q[n > 0]]
-    for w in range(13):
+    for w in (range(words) if words else itertools.count()):
         left = n - 4 * w
         on = left > 0
         hi = np.zeros(len(t), U32)
@@ -282,22 +391,97 @@ def _count_total(x32, y32, t, olen):
     return int(per_lane.sum())
 
 
-def kernel_model(seq1, rc2, len1, len2, dl, req, pct):
-    """csrc/overlap_sweep.cu in numpy, one pair row (warp) at a time."""
+def _first_gap_accept(x32, y32, lx, ly, dl, req, pct):
+    """first_gap_accept: 32 shifts a round, accepted where cmplen >= 2 and
+    the count over the first cmplen - 1 positions plus the lesser of the
+    two last compares is within the limit."""
+    x8, y8 = x32.view(np.uint8), y32.view(np.uint8)
+    n_cand = lx - req
+    for base in range(0, max(n_cand, 0), 32):
+        s = base + LANES
+        olen = np.minimum(lx - s, ly)
+        cm = olen - 1
+        cand = (s < n_cand) & (cm >= 2)
+        left = _count_prefix(x32, y32, s, np.where(cand, cm - 1, 0), dl, None)
+        last = np.ones(32, np.int64)
+        c = np.flatnonzero(cand)
+        last[c] = (x8[s[c] + cm[c]] != y8[cm[c] - 1]) \
+            & (y8[cm[c]] != x8[s[c] + cm[c] - 1])
+        accept = cand & (left + last <= _limit(olen, dl, pct))
+        votes = int(np.sum(accept.astype(np.int64) << LANES))
+        if votes:
+            win = base + (votes & -votes).bit_length() - 1
+            return win, min(lx - win, ly)
+    return None
+
+
+def _gap_diff_warp(ins8, norm8, cm, limit):
+    """gap_diff_warp: each lane sums e = (ins[j] != norm[j]) - (ins[j + 1] !=
+    norm[j]) over its run of ceil(cm / 32) positions, keeping the least
+    prefix before each j >= 1; an inclusive scan over the lanes, then the
+    warp's least value, the sum of the second term (R) and accLeft[cm - 2].
+    ins8, norm8: views of staged rows from the alignment's start."""
+    if cm < 2:
+        return -1
+    per = -(-cm // 32)
+    runs, lows, right, left = [], [], 0, 0
+    for lane in range(32):
+        lo = min(lane * per, cm)
+        run, low = 0, 1 << 30
+        for j in range(lo, min(lo + per, cm)):
+            if j >= 1:
+                low = min(low, run)
+            ml, mr = int(ins8[j] != norm8[j]), int(ins8[j + 1] != norm8[j])
+            run += ml - mr
+            right += mr
+            left += ml if j < cm - 1 else 0
+        runs.append(run)
+        lows.append(low)
+    incl = np.cumsum(runs)
+    least = min(int(incl[k] - runs[k] + lows[k]) for k in range(32))
+    if left + int(ins8[cm] != norm8[cm - 1]) > limit:
+        return -1
+    return right + least
+
+
+def _gap_diff_of(seq1_side, rc2_side, olen, dl, pct):
+    limit = int(_limit(np.array([olen]), dl, pct)[0])
+    d1 = _gap_diff_warp(seq1_side, rc2_side, olen - 1, limit)
+    if 0 <= d1 <= limit:
+        return d1
+    return _gap_diff_warp(rc2_side, seq1_side, olen - 1, limit)
+
+
+def kernel_model(seq1, rc2, len1, len2, dl, req, pct, gap=False):
+    """csrc/overlap_sweep.cu in numpy, one pair row (warp) at a time; with
+    `gap` its gapped variant (the has_gap key added)."""
     B, L = seq1.shape
-    out = np.zeros((4, B), np.int64)
+    out = np.zeros((5, B), np.int64)
     for r in range(B):
         a32, b32 = _staged_words(seq1[r], L), _staged_words(rc2[r], L)
         l1 = min(max(int(len1[r]), 0), L)
         l2 = min(max(int(len2[r]), 0), L)
         hit = _first_accept(a32, b32, l1, l2, dl, req, pct)
         if hit is not None:
-            out[:, r] = 1, hit[0], hit[1], _count_total(a32, b32, *hit)
+            out[:4, r] = 1, hit[0], hit[1], _count_total(a32, b32, *hit)
             continue
         hit = _first_accept(b32, a32, l2, l1, dl, req, pct)
         if hit is not None:
-            out[:, r] = 1, -hit[0], hit[1], _count_total(b32, a32, *hit)
-    return dict(zip(KEYS, out))
+            out[:4, r] = 1, -hit[0], hit[1], _count_total(b32, a32, *hit)
+            continue
+        if not gap:
+            continue
+        a8, b8 = a32.view(np.uint8), b32.view(np.uint8)
+        hit = _first_gap_accept(a32, b32, l1, l2, dl, req, pct)
+        if hit is not None:    # ins of d1: the shifted seq1
+            out[:, r] = 1, hit[0], hit[1], _gap_diff_of(
+                a8[hit[0]:], b8, hit[1], dl, pct), 1
+            continue
+        hit = _first_gap_accept(b32, a32, l2, l1, dl, req, pct)
+        if hit is not None:    # ins of d1: seq1 unshifted, the shift on rc2
+            out[:, r] = 1, -hit[0], hit[1], _gap_diff_of(
+                a8, b8[hit[0]:], hit[1], dl, pct), 1
+    return dict(zip(KEYS + ("has_gap",), out if gap else out[:4]))
 
 
 @pytest.mark.parametrize("B,L", [(192, 160), (96 + 5, 160), (3, 160),
@@ -351,6 +535,112 @@ def test_kernel_model_at_odd_settings(req, dl):
     _same(got, plain)
 
 
+def _gap_model_case(name):
+    """(seq1, rc2, len1, len2, setting) of the gapped model's cases."""
+    if name.startswith("adversarial"):
+        B, L = {"adversarial": (96, 160), "adversarial_pe251": (40 + 5, 256),
+                "adversarial_odd": (37, 120)}[name]
+        return (*_adversarial_rows(np.random.default_rng(B + L + 1), B=B,
+                                   L=L), (5, 30, 0.2))
+    s1, l1, s2, l2 = {"gap": lambda: gap_rows(16, B=64),
+                      "edges": lambda: gap_edge_rows(17)[:4],
+                      "tiny_overlaps": tiny_overlap_rows,
+                      "narrow": narrow_rows}[name]()
+    setting = (5, 0, 0.2) if name == "tiny_overlaps" else (5, 30, 0.2)
+    rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2)).numpy()
+    return s1, rc2, l1, l2, setting
+
+
+@pytest.mark.parametrize("name", ["adversarial", "adversarial_pe251",
+                                  "adversarial_odd", "gap", "edges",
+                                  "tiny_overlaps", "narrow"])
+def test_gap_kernel_model_matches_plain(name):
+    """The gapped variant's model (the ungapped rounds, then gapped rounds
+    forward and backward, the one-insertion difference at the winner) held
+    to the plain gapped version on every key, has_gap included: any byte
+    value, the PE251 width, a width no multiple of 16, planted insertions in
+    either read at forward and backward offsets, d1 = -1 with d2 accepting,
+    olen 50 and 51, cmplen < 2 and a width below overlap_require."""
+    seq1, rc2, l1, l2, setting = _gap_model_case(name)
+    got = kernel_model(seq1, rc2, l1, l2, *setting, gap=True)
+    want = gap_sweep_select_plain_np(seq1, rc2, l1, l2, *setting)
+    _same(got, want, KEYS + ("has_gap",))
+    if name in ("gap", "edges"):
+        assert got["has_gap"].sum() > len(l1) // 2
+        assert (got["offset"][got["has_gap"] > 0] < 0).any()
+        assert (got["offset"][got["has_gap"] > 0] > 0).any()
+
+
+def test_gap_kernel_model_reads_no_byte_past_a_length():
+    seq1, rc2, l1, l2, setting = _gap_model_case("gap")
+    base = kernel_model(seq1, rc2, l1, l2, *setting, gap=True)
+    pos = np.arange(seq1.shape[1])
+    seq1b, rc2b = seq1.copy(), rc2.copy()
+    seq1b[pos[None, :] >= l1[:, None]] ^= 0xff
+    rc2b[pos[None, :] >= l2[:, None]] ^= 0xff
+    _same(kernel_model(seq1b, rc2b, l1, l2, *setting, gap=True), base,
+          KEYS + ("has_gap",))
+
+
+@st.composite
+def _lanes_of_a_row(draw):
+    """One staged pair row and a warp's 32 lanes on it: each lane a shift t,
+    a cmplen (-1 up to what the row holds past t) and a limit within
+    diff_limit.  y is x from a shift t0 on with a few substitutions and at
+    most one base left out (so that the lanes near t0 pass), or random."""
+    L = draw(st.integers(3, 100))
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    letters = np.frombuffer(b"ACGT", np.uint8)[:draw(st.integers(1, 4))]
+    x = rng.choice(letters, L)
+    t0 = draw(st.integers(0, L - 1))
+    y = np.concatenate([x[t0:], rng.choice(letters, t0)])
+    if draw(st.booleans()):          # one base of x left out of y
+        k = int(rng.integers(0, L))
+        y = np.concatenate([y[:k], y[k + 1:], rng.choice(letters, 1)])
+    flips = rng.integers(0, L, draw(st.integers(0, 8)))
+    y[flips] = rng.choice(letters, len(flips))
+    if draw(st.booleans()):
+        y = rng.choice(letters, L)
+    dl = draw(st.integers(-1, 8))
+    t = np.clip(t0 + rng.integers(-3, 4, 32), 0, L - 1)
+    t[rng.random(32) < 0.3] = rng.integers(0, L, 32)[:1]
+    cm = np.array([int(rng.integers(-1, L - int(u))) for u in t])
+    limit = rng.integers(-1, dl + 1, 32)
+    return x, y, t.astype(np.int64), cm, limit, dl
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(case=_lanes_of_a_row())
+def test_word_wise_gap_test_equals_gap_diff(case):
+    """The kernel's gapped accept test (the word-wise count over the first
+    cmplen - 1 positions, the warp leaving the loop once every lane's count
+    has passed diff_limit, plus the lesser of the two last compares) equals
+    "either role's gap_diff passes the limit", and its warp-wise
+    one-insertion difference equals _gap_diff in both roles, lane by lane."""
+    x, y, t, cm, limit, dl = case
+    L = len(x)
+    x32, y32 = _staged_words(x, L), _staged_words(y, L)
+    x8, y8 = x32.view(np.uint8), y32.view(np.uint8)
+    cand = cm >= 2
+    left = _count_prefix(x32, y32, t, np.where(cand, cm - 1, 0), dl, None)
+    last = np.ones(32, np.int64)
+    c = np.flatnonzero(cand)
+    last[c] = (x8[t[c] + cm[c]] != y8[cm[c] - 1]) \
+        & (y8[cm[c]] != x8[t[c] + cm[c] - 1])
+    accept = cand & (left + last <= limit)
+    xpad = np.concatenate([x, np.zeros(L, np.uint8)])
+    ins = torch.from_numpy(np.stack([xpad[u:u + L] for u in t]))
+    norm = torch.from_numpy(np.repeat(y[None], 32, 0))
+    cmt, limt = (torch.from_numpy(v.astype(np.int32)) for v in (cm, limit))
+    d1 = t_overlap._gap_diff(ins, norm, cmt, limt).numpy()
+    d2 = t_overlap._gap_diff(norm, ins, cmt, limt).numpy()
+    dd = np.where((d1 < 0) | (d1 > limit), d2, d1)
+    assert np.array_equal(accept, (dd >= 0) & (dd <= limit))
+    for k in range(32):
+        assert _gap_diff_warp(x8[t[k]:], y8, int(cm[k]), int(limit[k])) == d1[k]
+        assert _gap_diff_warp(y8, x8[t[k]:], int(cm[k]), int(limit[k])) == d2[k]
+
+
 @pytest.mark.parametrize("L,stride,rows", [
     (160, 176, 8), (256, 272, 8), (100, 128, 8), (32, 48, 8),
     (3072, 3088, 7), (24560, 24576, 1), (24576, 24592, 0), (0, 16, 0)])
@@ -362,34 +652,83 @@ def test_shared_memory_rows(L, stride, rows):
     assert L <= 0 or 4 * ((L - 1 + 3) // 4 + 1) + 4 <= stride
 
 
+def _test_cost(x, y, n, limit, tail):
+    """Compares of one accept test, byte by byte: stop once the mismatches
+    pass `limit`, else n and `tail` more."""
+    mm = 0
+    for i in range(n):
+        mm += int(x[i] != y[i])
+        if mm > limit:
+            return i + 1
+    return n + tail if n > 0 else 0
+
+
+def _offsets(seq1, rc2, l1, l2, r, req):
+    """Row r's offsets in walk order: (offset, olen, x, y), x[i] against
+    y[i] for i < olen being the overlap's byte pairs."""
+    a, b = int(l1[r]), int(l2[r])
+    return [(t, min(a - t, b), seq1[r, t:], rc2[r])
+            for t in range(max(a - req, 0))] \
+        + [(-k, min(a, b - k), seq1[r], rc2[r, k:])
+           for k in range(max(b - req, 0))]
+
+
 @pytest.mark.parametrize("setting", [(5, 30, 0.2), (5, 30, 0.0)])
 def test_needed_compares_counts_the_walk(setting):
     """chip_smoke.py's count of the byte compares behind the kernel's
-    bound, against a walk of the offsets one by one."""
-    seq1, rc2, l1, l2 = _adversarial_rows(np.random.default_rng(12), B=96, L=160)
+    bound, against a walk of the offsets one by one: each offset's accept
+    test over min(olen, 50) positions, stopped where its mismatches pass
+    the limit, and the winner's whole overlap once."""
+    rows = _adversarial_rows(np.random.default_rng(12), B=96, L=160)
+    seq1, rc2, l1, l2 = rows
     found, offset, ol, _ = (x.numpy() for x in t_overlap.sweep_select_plain(
-        *(torch.from_numpy(x) for x in (seq1, rc2, l1, l2)), *setting))
-    req = setting[1]
-    full = prefix = 0
+        *(torch.from_numpy(x) for x in rows), *setting))
+    dl, req, pct = setting
+    full = needed = 0
     for r in range(96):
-        a, b = int(l1[r]), int(l2[r])
-        walk = [(t, min(a - t, b)) for t in range(max(a - req, 0))] \
-            + [(-k, min(a, b - k)) for k in range(max(b - req, 0))]
+        walk = _offsets(seq1, rc2, l1, l2, r, req)
         if found[r]:   # offset 0 is shift 0 of whichever direction comes first
-            walk = walk[:[o for o, _ in walk].index(int(offset[r])) + 1]
+            walk = walk[:[o for o, *_ in walk].index(int(offset[r])) + 1]
             assert walk[-1][1] == ol[r]
-            prefix += int(ol[r])
-        walk = [o for _, o in walk]
-        full += sum(max(o, 0) for o in walk)
-        prefix += sum(min(max(o, 0), 50) for o in walk)
-    assert needed_compares(found, offset, ol, l1, l2, req) == (full, prefix)
-    assert 0 < prefix < full
+            needed += int(ol[r])
+        for _, o, x, y in walk:
+            full += max(o, 0)
+            needed += _test_cost(x, y, min(max(o, 0), 50), int(_limit(o, dl, pct)), 0)
+    assert needed_compares(rows, found, offset, ol, setting) == (full, needed)
+    assert 0 < needed < full
+
+
+@pytest.mark.parametrize("name", ["gap", "adversarial"])
+def test_gap_needed_compares_counts_the_walk(name):
+    """chip_smoke.py's count of the byte compares behind the gapped
+    variant's bound, against a walk of the gapped offsets one by one over
+    the rows the ungapped pass leaves: each offset's test over olen - 2
+    positions (none below olen 3), stopped where its mismatches pass the
+    limit, else with its two last compares; the winner's difference once."""
+    seq1, rc2, l1, l2, setting = _gap_model_case(name)
+    rows = (seq1, rc2, l1, l2)
+    args = [torch.from_numpy(x) for x in rows]
+    ungapped = [x.numpy() for x in t_overlap.sweep_select_plain(*args, *setting)]
+    gapped = [x.numpy() for x in t_overlap.gap_sweep_select_plain(*args, *setting)]
+    dl, req, pct = setting
+    _, want = needed_compares(rows, *ungapped[:3], setting)
+    for r in np.flatnonzero(~ungapped[0]):
+        walk = _offsets(seq1, rc2, l1, l2, r, req)
+        if gapped[4][r]:
+            walk = walk[:[o for o, *_ in walk].index(int(gapped[1][r])) + 1]
+            assert walk[-1][1] == gapped[2][r]
+            want += 2 * (int(gapped[2][r]) - 1)
+        for _, o, x, y in walk:
+            want += _test_cost(x, y, o - 2 if o >= 3 else 0, int(_limit(o, dl, pct)), 2)
+    assert gap_needed_compares(rows, ungapped, gapped, setting) == want
+    assert gapped[4].any() or name == "adversarial"
 
 
 def test_wrapper_uses_plain_version_on_cpu():
     s1, l1, s2, l2 = _corpus(6, B=32)
     before = launches.snapshot()
     _port(s1, l1, s2, l2, 5, 30, 0.2)
+    _port(s1, l1, s2, l2, 5, 30, 0.2, allow_gap=True)
     assert launches.snapshot() == before
 
 
