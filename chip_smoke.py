@@ -38,13 +38,17 @@ Phases, in order; each prints one line, and any failure exits non-zero:
                  kernel's grid, timed the same way).  Then the overlap
                  kernel's gapped variant (--allow_gap_overlap_trimming)
                  against its plain version, bit-equal on all five outputs:
-                 bench rows and planted one-base insertions and deletions at
-                 forward and backward offsets (gap_rows) at B=8192, L=160,
-                 adversarial rows at the same further shapes, three overlap
-                 settings; the planted rows must give gapped accepts both
-                 ways; timed as the others, beside the plain version as a
-                 graph and eager and the parent's chain for it (the
-                 ungapped kernel, then the plain gapped pass) as a graph
+                 bench rows, planted one-base insertions and deletions at
+                 forward and backward offsets (gap_rows) and the bench rows
+                 with one indel planted in read 2 inside every overlap
+                 (indel151_rows) at B=8192, L=160, adversarial rows at the
+                 same further shapes, three overlap settings, with the rows
+                 each leaves to the gapped pass and accepts there; the
+                 planted rows must give gapped accepts both ways; timed on
+                 the three row sets as the others, beside the plain
+                 version as a graph (on the bench rows also eager, and the
+                 chain the step ran before the gapped kernel: the ungapped
+                 kernel, then the plain gapped pass, as a graph)
   4. golden   -- `python -m fastp_tpu_torch` on the golden inputs of cfg1
                  (single-end), cfg3, cfg5 (--merge, dedup, overrepresented
                  sequences), cfg6 (--failed_out, unpaired), cfg7 (split)
@@ -183,8 +187,11 @@ builds earlier versions of the kernels' sources, each named by its file
 1877111's from `git show 1877111:fastp_tpu_torch/csrc/<name>.cu` under
 _archive/), checks
 each against the plain version and times it against the current kernel in
-turns (old, new, new, old): overlap_sweep at two overlap settings,
-stat_batch at L and 2 L, trim_by_sequence on both mates.  The
+turns (old, new, new, old): overlap_sweep at two overlap settings (and its
+ungapped instantiation's SASS against the old one's, by cuobjdump), then
+overlap_sweep and overlap_gap_sweep on the gap row sets (bench, planted,
+indel151) at the gap path's setting, stat_batch at L and 2 L,
+trim_by_sequence on both mates.  The
 stat_batch.cu and adapter_match.cu of commit 1877111 (their C interfaces)
 are launched as their wrappers launched them (the zeroing nodes
 included); a file whose C function takes another count of parameters is
@@ -604,6 +611,41 @@ def gap_rows(seed, B=48, L=96):
     return s1, len1, s2, len2
 
 
+def plant_indels(rows, found, offset, overlap_len, rng, subs=0, tail=None):
+    """A copy of rows = (seq1, rc2, len1, len2) with one insertion or
+    deletion (one in two) planted in rc(read 2), so in read 2, inside the
+    overlap of every row where `found`, at `offset` over `overlap_len`
+    bases (the ungapped sweep's outputs, or an overlap known by
+    construction), and `subs` substitutions in the overlap besides.  The
+    indel sits anywhere in the overlap, or within its last `tail` bases;
+    read 2 keeps its length (a base falls off its end, or a random one
+    follows)."""
+    s1, rc2, len1, len2 = (x.copy() for x in rows)
+    for r in np.flatnonzero(found):
+        start, n = max(-int(offset[r]), 0), int(overlap_len[r])
+        l2 = int(len2[r])
+        p = start + int(rng.integers(max(n - tail, 0) if tail else 0, n))
+        row, base = rc2[r, :l2].copy(), rng.choice(ACGT, 1)
+        rc2[r, :l2] = (np.concatenate([row[:p], base, row[p:l2 - 1]])
+                       if rng.random() < 0.5 else
+                       np.concatenate([row[:p], row[p + 1:], base]))
+        for j in start + rng.integers(0, n, subs):
+            rc2[r, j] = ACGT[(np.searchsorted(ACGT, rc2[r, j]) + 1) % 4]
+    return s1, rc2, len1, len2
+
+
+def indel151_rows(rng, device="cuda"):
+    """The bench rows (_bench_rows: 151-base pairs, their trimmed lengths
+    and their inserts) with one insertion or deletion planted in read 2
+    inside the overlap of every pair the ungapped sweep (the plain version,
+    on `device`) finds overlapping at the gap path's setting: reads with
+    real indels."""
+    rows = _bench_rows(rng)
+    found, offset, ol, _ = (x.cpu().numpy() for x in sweep_select_plain(
+        *(torch.from_numpy(x).to(device) for x in rows), *OVERLAP_SETTINGS[0]))
+    return plant_indels(rows, found, offset, ol, rng)
+
+
 def stat_rows(rng, B, L):
     """Arguments of stat_batch that stress its edges: every byte value as a
     base (with ACGT-rich rows, so that 5-mers count), qualities below 33
@@ -782,8 +824,9 @@ def _walk_compares(rows_np, walked_f, walked_b, setting, gapped):
     forward and walked_b backward offsets (numpy [B] each), summed: the
     ungapped test over min(olen, 50) positions, the gapped one over the
     olen - 2 positions before the overlap's last two and then its two last
-    compares (olen < 3 rejected unread); each stopping where its mismatch
-    count passes the offset's limit (_test_compares)."""
+    compares (olen < 3 and olen > 51 rejected unread: see
+    gap_needed_compares); each stopping where its mismatch count passes the
+    offset's limit (_test_compares)."""
     seq1, rc2, len1, len2 = rows_np
     rows_n, width = seq1.shape
     pad = np.zeros((rows_n, width), np.uint8)
@@ -800,7 +843,8 @@ def _walk_compares(rows_np, walked_f, walked_b, setting, gapped):
                  y_all[:, s:s + w])):
             on = s < walked
             o = olen[on]
-            n = (np.where(o >= 3, o - 2, 0) if gapped
+            n = (np.where((o >= 3) & (o <= COMPLETE_COMPARE_REQUIRE + 1),
+                          o - 2, 0) if gapped
                  else np.clip(o, 0, COMPLETE_COMPARE_REQUIRE))
             total += int(_test_compares(x[on], y[on], n, _limit_of(
                 o, setting[0], setting[2]), 2 if gapped else 0).sum())
@@ -872,7 +916,12 @@ def gap_needed_compares(rows_np, ungapped, gapped, setting):
     `needed`), then, for each row that walk leaves unaccepted, the gapped
     accept tests of its gapped walk (_walk_compares: each cut where its
     mismatch count passes the offset's limit), and the winner's
-    one-insertion difference once, 2 (olen - 1) compares."""
+    one-insertion difference once, 2 (olen - 1) compares.  The gapped walk
+    counts no offset with an overlap above 51: such a row had every
+    ungapped offset rejected, so mm50, the mismatches over the first 50
+    positions, is over the limit at each of them, and the gapped count over
+    olen - 2 >= 50 positions is at least mm50 there; they need no compare
+    (csrc/overlap_sweep.cu's header has the argument)."""
     found_u, off_u, ol_u = ungapped[:3]
     _, needed = needed_compares(rows_np, found_u, off_u, ol_u, setting)
     _, off, ol, _, has_gap = gapped
@@ -920,8 +969,9 @@ def _same_as_plain(got, want, what):
     return worst
 
 
-def _raw_launcher(fn, tensors, setting, warps):
-    """A call of a kernel library's C entry point on preallocated outputs
+def _raw_launcher(fn, tensors, setting, warps, gap=False):
+    """A call of a kernel library's C entry point (overlap_sweep, or with
+    `gap` overlap_gap_sweep and its has_gap output) on preallocated outputs
     (no wrapper), for timing two builds of the kernel alike.  Returns
     (call, outputs)."""
     s1, r2, l1, l2 = tensors
@@ -930,13 +980,33 @@ def _raw_launcher(fn, tensors, setting, warps):
     outs = (torch.empty(rows, dtype=torch.bool, device=s1.device),
             *(torch.empty(rows, dtype=torch.int32, device=s1.device)
               for _ in range(3)))
+    if gap:
+        outs += (torch.empty(rows, dtype=torch.bool, device=s1.device),)
 
     def call():
         err = fn(s1.data_ptr(), r2.data_ptr(), l1.data_ptr(), l2.data_ptr(),
                  rows, width, dl, req, pct, *(o.data_ptr() for o in outs),
                  warps, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, "overlap_sweep launch failed: CUDA error %d" % err)
+        check(err == 0, "%s launch failed: CUDA error %d"
+              % ("overlap_gap_sweep" if gap else "overlap_sweep", err))
     return call, outs
+
+
+def kernel_sass(lib_path, mangled_part):
+    """The SASS instructions (addresses and encodings left out) of the one
+    kernel of a built library whose mangled name contains `mangled_part`,
+    by cuobjdump beside nvcc; None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    chunks = [c for c in text.split("Function : ")[1:]
+              if mangled_part in c.split("\n", 1)[0]]
+    check(len(chunks) == 1, "%s: %d kernels named like %s"
+          % (lib_path, len(chunks), mangled_part))
+    return [re.sub(r"/\*.*?\*/", "", ln).strip() for ln in
+            chunks[0].splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
 
 
 def compare_with_old_kernel(old_source, tensors, want_by_setting):
@@ -962,12 +1032,26 @@ def compare_with_old_kernel(old_source, tensors, want_by_setting):
         turns = [("old", old_call), ("new", new_call), ("new", new_call),
                  ("old", old_call)]
         out[setting[2]] = [(name, _graph_ms(call)) for name, call in turns]
+    # the ungapped instantiation (overlap_sweep_kernel<false>) of both
+    # libraries, instruction by instruction
+    sass = [kernel_sass(cuda_build.library_path(*lib),
+                        "overlap_sweep_kernelILb0E")
+            for lib in (("overlap_sweep",), ("overlap_sweep_old", old_source))]
     print("old kernel (%s) against the new one, B=%d L=%d, device time per "
-          "launch from CUDA-graph replays of 20 launches, in turns: %s"
+          "launch from CUDA-graph replays of 20 launches, in turns: %s; the "
+          "ungapped instantiation's SASS: %s"
           % (os.path.basename(old_source), B, L, "; ".join(
               "diff_pct %s: %s" % (pct, ", ".join(
                   "%s %.4f ms" % t for t in turns))
-              for pct, turns in out.items())), flush=True)
+              for pct, turns in out.items()),
+             "not compared (no cuobjdump)" if None in sass else
+             "the same %d instructions in both" % len(sass[0])
+             if sass[0] == sass[1] else "differs (%d instructions new, %d "
+             "old; the first difference: %s)" % (
+                 len(sass[0]), len(sass[1]), next(
+                     ("#%d new %r, old %r" % (k, n, o) for k, (n, o) in
+                      enumerate(zip(*sass)) if n != o), "in length"))),
+          flush=True)
     return out
 
 
@@ -1065,7 +1149,8 @@ def phase_kernel(old=None):
                  100.0 * bounds[pct]["bound_ms"] / t["ms"])
               for pct, t in timing.items())), flush=True)
     return worst, timing, bounds, {
-        "overlap_gap_sweep": kernel_gap(rng, overlap_floor),
+        "overlap_gap_sweep": kernel_gap(rng, overlap_floor,
+                                        old.get("overlap_sweep")),
         "stat_batch": kernel_stats(rng, old.get("stat_batch")),
         "trim_by_sequence": kernel_adapter(rng, old.get("adapter_match"))}
 
@@ -1502,27 +1587,83 @@ def kernel_adapter(rng, old_source=None):
             "old": old}
 
 
-def kernel_gap(rng, floor):
+# the gapped kernel's timed row sets: the bench rows, planted one-base
+# insertions (gap_rows) and the bench rows with real indels (indel151_rows)
+GAP_ROW_SETS = ("bench", "planted", "indel151")
+
+
+def compare_gap_with_old(old_source, row_sets, setting):
+    """An earlier version of csrc/overlap_sweep.cu (the current C interface;
+    built in phase build as overlap_sweep_old) against the current one on
+    each of GAP_ROW_SETS at `setting`: both C functions, the gapped one and
+    the ungapped one, held to their plain versions and timed in turns (old,
+    new, new, old).  row_sets: {name: (tensors, ungapped want, gapped
+    want)}.  Returns {name: {kernel: [(old or new, ms)]}}; an old source
+    without the gapped variant (no overlap_gap_sweep) gives the ungapped
+    kernel's alone."""
+    gap_params = c_param_count(old_source, "overlap_gap_sweep")
+    check(gap_params in (None, c_param_count(os.path.join(
+        cuda_build.CSRC, "overlap_sweep.cu"), "overlap_gap_sweep")),
+        "--old-kernel %s: its overlap_gap_sweep takes %s parameters"
+        % (old_source, gap_params))
+    kernels = (("overlap_gap_sweep", True),) if gap_params else ()
+    old_lib = cuda_build.load("overlap_sweep_old", old_source)
+    warps = overlap_cuda.rows_per_block(L)
+    out = {}
+    for name, (tensors, want_u, want_g) in row_sets.items():
+        out[name] = {}
+        for kernel, gap in kernels + (("overlap_sweep", False),):
+            want = want_g if gap else want_u
+            new_fn = overlap_cuda._kernel(gap)
+            old_fn = getattr(old_lib, kernel)
+            old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
+            calls = {}
+            for what, fn in (("old", old_fn), ("new", new_fn)):
+                call, outs = _raw_launcher(fn, tensors, setting, warps, gap)
+                call()
+                torch.cuda.synchronize()
+                _max_abs_err(outs, want, "%s build of %s on the %s rows"
+                             % (what, kernel, name))
+                calls[what] = call
+            out[name][kernel] = [(what, _graph_ms(calls[what]))
+                                 for what in ("old", "new", "new", "old")]
+    print("old overlap kernel (%s) against the new one, both C functions, "
+          "B=%d L=%d, %s, device time per launch from CUDA-graph replays of "
+          "20 launches, in turns: %s"
+          % (os.path.basename(old_source), B, L, setting, "; ".join(
+              "%s rows, %s: %s" % (name, kernel, _turns_text(turns))
+              for name, kernels in out.items()
+              for kernel, turns in kernels.items())), flush=True)
+    return out
+
+
+def kernel_gap(rng, floor, old_source=None):
     """csrc/overlap_sweep.cu's gapped variant (overlap_cuda.gap_sweep_select)
     against gap_sweep_select_plain on the card, bit-equal on all five
-    outputs, one launch counted as overlap_gap_sweep a call: the bench rows
-    and planted one-base insertions and deletions (gap_rows, forward and
-    backward offsets) at B x L, adversarial rows at EDGE_SHAPES, each at
-    OVERLAP_SETTINGS; the planted rows must give gapped accepts at forward
-    and at backward offsets.  Times it on the bench rows and on the planted
-    rows at the gap path's setting, each beside its bound, its launch floor
-    (`floor`: the overlap kernel's grid, which it shares) and the plain
-    version captured as a graph; on the bench rows also the plain version
-    eager and what the parent's step ran in its place (the ungapped kernel,
-    then _gap_pass) as a graph."""
+    outputs, one launch counted as overlap_gap_sweep a call: the bench rows,
+    planted one-base insertions and deletions (gap_rows, forward and
+    backward offsets) and the bench rows with real indels (indel151_rows)
+    at B x L, adversarial rows at EDGE_SHAPES, each at OVERLAP_SETTINGS;
+    the planted rows must give gapped accepts at forward and at backward
+    offsets.  Counts, for each case and setting, the rows the ungapped pass
+    leaves to the gapped pass and the rows accepted there.  Times it on
+    GAP_ROW_SETS at the gap path's setting, each beside its bound, its
+    launch floor (`floor`: the overlap kernel's grid, which it shares) and
+    the plain version captured as a graph; on the bench rows also the plain
+    version eager and what the step ran in its place before the gapped
+    kernel (the ungapped kernel, then _gap_pass) as a graph.  With
+    `old_source`, an earlier overlap_sweep.cu against the current one on
+    GAP_ROW_SETS (compare_gap_with_old)."""
     cases = [("bench", _bench_rows(rng))]
     s1, l1, s2, l2 = gap_rows(int(rng.integers(1 << 30)), B=B, L=L)
     cases.append(("planted", (s1, rc(torch.from_numpy(s2),
                                       torch.from_numpy(l2)).numpy(), l1, l2)))
+    cases.append(("indel151", indel151_rows(rng)))
     for rows_n, width in EDGE_SHAPES:
         cases.append(("adversarial B=%d L=%d" % (rows_n, width),
                       _adversarial_rows(rng, B=rows_n, L=width)))
-    worst, planted, accepted, timed = 0, {}, {}, {}
+    worst, planted, accepted, sent, timed, olds = 0, {}, {}, {}, {}, {}
+    setting0 = OVERLAP_SETTINGS[0]
     for what, rows_np in cases:
         tensors = tuple(torch.from_numpy(x).cuda() for x in rows_np)
         for setting in OVERLAP_SETTINGS:
@@ -1535,12 +1676,15 @@ def kernel_gap(rng, floor):
             want = gap_sweep_select_plain(*tensors, *setting)
             worst = max(worst, _max_abs_err(
                 got, want, "overlap_gap_sweep %s at %s" % (what, setting)))
-            has_gap, offset = got[4], got[1]
+            found, offset, has_gap = got[0], got[1], got[4]
             accepted[what, setting[2]] = int(has_gap.sum())
+            sent[what, setting[2]] = int((~found | has_gap).sum())
             if what == "planted":
                 planted[setting] = (int((has_gap & (offset > 0)).sum()),
                                     int((has_gap & (offset < 0)).sum()))
-            if what in ("bench", "planted") and setting == OVERLAP_SETTINGS[0]:
+            if what in GAP_ROW_SETS and setting == setting0:
+                ungapped = sweep_select_plain(*tensors, *setting)
+                olds[what] = (tensors, ungapped, want)
                 kernel = functools.partial(overlap_cuda.gap_sweep_select,
                                            *tensors, *setting)
                 plain = functools.partial(gap_sweep_select_plain, *tensors,
@@ -1549,8 +1693,9 @@ def kernel_gap(rng, floor):
                     "ms": _graph_ms(kernel), "call_ms": _median_ms(kernel),
                     "floor_ms": floor,
                     "plain_ms": _graph_ms(plain, launches=1, replays=5),
-                    "bound": gap_bound(rows_np, sweep_select_plain(
-                        *tensors, *setting), want, setting)}
+                    "bound": gap_bound(rows_np, ungapped, want, setting),
+                    "rows_to_gapped_pass": sent[what, setting[2]],
+                    "gapped_accepts": accepted[what, setting[2]]}
                 if what == "bench":
                     def parent():
                         return _gap_pass(*tensors, *setting, *(
@@ -1558,11 +1703,13 @@ def kernel_gap(rng, floor):
                     t["plain_eager_ms"] = _median_ms(plain, runs=3)
                     t["parent_chain_ms"] = _graph_ms(parent, launches=1,
                                                      replays=5)
-    fwd, bwd = planted[OVERLAP_SETTINGS[0]]
+    fwd, bwd = planted[setting0]
     check(fwd > 0 and bwd > 0, "the planted rows gave %d forward and %d "
           "backward gapped accepts" % (fwd, bwd))
+    old = compare_gap_with_old(old_source, olds, setting0) if old_source \
+        else None
     timing = timed["bench"]
-    bound = timing.pop("bound")
+    bound = timing["bound"]
 
     def bound_text(b, ms):
         return ("%d of %d rows left by the ungapped pass; needs %d byte "
@@ -1573,32 +1720,30 @@ def kernel_gap(rng, floor):
                    b["bound_by"], b["bytes_ms"], b["operations_ms"],
                    100.0 * b["bound_ms"] / ms))
     print("phase kernel: overlap_gap_sweep == plain, bit-equal on all five "
-          "outputs, %d cases x %d settings (%s), max abs err %d; gapped "
-          "accepts by case and diff_pct: %s; the planted rows' forward and "
-          "backward gapped accepts by setting: %s; B=%d L=%d (bench rows, "
-          "%s): kernel %.4f ms of device time per launch (CUDA-graph replays "
-          "of 20 launches; launch floor %.4f ms), %.4f ms for one call "
-          "between two events; plain version %.4f ms as a graph (%.4f ms "
-          "eager); the parent's step for it (the ungapped kernel, then "
-          "_gap_pass) %.4f ms as a graph; %s"
+          "outputs, %d cases x %d settings (%s), max abs err %d; rows left "
+          "to the gapped pass by case and diff_pct: %s; gapped accepts: "
+          "%s; the planted rows' forward and backward gapped accepts by "
+          "setting: %s; B=%d L=%d (bench rows, %s): plain version %.4f ms "
+          "eager; the step's chain for it before the gapped kernel (the "
+          "ungapped kernel, then _gap_pass) %.4f ms as a graph"
           % (len(cases), len(OVERLAP_SETTINGS), ", ".join(w for w, _ in cases),
-             worst, json.dumps({"%s %s" % k: v for k, v in accepted.items()}),
+             worst, json.dumps({"%s %s" % k: v for k, v in sent.items()}),
+             json.dumps({"%s %s" % k: v for k, v in accepted.items()}),
              json.dumps({str(k): v for k, v in planted.items()}), B, L,
-             OVERLAP_SETTINGS[0], timing["ms"], timing["floor_ms"],
-             timing["call_ms"], timing["plain_ms"], timing["plain_eager_ms"],
-             timing["parent_chain_ms"], bound_text(bound, timing["ms"])),
+             setting0, timing["plain_eager_ms"], timing["parent_chain_ms"]),
           flush=True)
-    p = timed["planted"]
-    print("phase kernel: overlap_gap_sweep on the planted rows (B=%d L=%d, "
-          "%s, %d gapped accepts): kernel %.4f ms of device time per launch "
-          "(CUDA-graph replays of 20 launches), %.4f ms for one call between "
-          "two events; plain version %.4f ms as a graph; %s"
-          % (B, L, OVERLAP_SETTINGS[0], accepted["planted", OVERLAP_SETTINGS[0][2]],
-             p["ms"], p["call_ms"], p["plain_ms"],
-             bound_text(p["bound"], p["ms"])), flush=True)
+    for what, t in timed.items():
+        print("phase kernel: overlap_gap_sweep on the %s rows (B=%d L=%d, %s, "
+              "%d rows to the gapped pass, %d gapped accepts): kernel %.4f "
+              "ms of device time per launch (CUDA-graph replays of 20 "
+              "launches; launch floor %.4f ms), %.4f ms for one call between "
+              "two events; plain version %.4f ms as a graph; %s"
+              % (what, B, L, setting0, t["rows_to_gapped_pass"],
+                 t["gapped_accepts"], t["ms"], t["floor_ms"], t["call_ms"],
+                 t["plain_ms"], bound_text(t["bound"], t["ms"])), flush=True)
     return {"max_abs_err": worst, "timing": timing, "bound": bound,
-            "cases": len(cases) * len(OVERLAP_SETTINGS), "old": None,
-            "planted_gapped_accepts": planted, "planted": p}
+            "cases": len(cases) * len(OVERLAP_SETTINGS), "old": old,
+            "planted_gapped_accepts": planted, "row_sets": timed}
 
 
 def phase_golden(work):
@@ -3512,13 +3657,15 @@ def main(argv=None):
                  "parent_chain_ms"],
              planted_gapped_accepts={str(k): v for k, v in new_kernels[
                  "overlap_gap_sweep"]["planted_gapped_accepts"].items()},
-             planted_ms=new_kernels["overlap_gap_sweep"]["planted"]["ms"],
-             planted_plain_ms=new_kernels["overlap_gap_sweep"]["planted"][
-                 "plain_ms"],
-             planted_bound_ms=new_kernels["overlap_gap_sweep"]["planted"][
-                 "bound"]["bound_ms"],
-             planted_bound_by=new_kernels["overlap_gap_sweep"]["planted"][
-                 "bound"]["bound_by"]),
+             row_sets={what: {
+                 "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound"]["bound_ms"],
+                 "bound_by": r["bound"]["bound_by"],
+                 "compares_needed": r["bound"]["compares_needed"],
+                 "rows_to_gapped_pass": r["rows_to_gapped_pass"],
+                 "gapped_accepts": r["gapped_accepts"]}
+                 for what, r in new_kernels["overlap_gap_sweep"][
+                     "row_sets"].items()}),
         entry("stat_batch", "fastp_tpu_torch/csrc/stat_batch.cu",
               "fastp_tpu/ops/stats.py:26", new_kernels["stat_batch"],
               "no single PyTorch call computes the whole dict of per-cycle "

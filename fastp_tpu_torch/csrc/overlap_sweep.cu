@@ -89,18 +89,53 @@
 //   accLeft[cmplen - 2] + min(x[s + cmplen] != y[cmplen - 1],
 //                             y[cmplen] != x[s + cmplen - 1]) <= limit
 // (x the shifted string, y the other): the mismatch count over the first
-// olen - 2 positions, which the gapped rounds take word by word, 32 offsets
-// a round, leaving a round together once every lane's count has passed
-// diff_limit (count_upto), and two byte compares.  The one-insertion
-// difference itself (d1, or d2 where d1 is -1 or over the limit) is taken
-// once per row, at the winning offset, by the whole warp: each lane a run
-// of positions, the prefix of accLeft - prefix(accRight) across the lanes
-// by shuffles, the least value and the sums by warp reductions
-// (gap_diff_warp).  The roles follow the reference, not the sweep's x and
-// y: going forward ins is the shifted seq1, going back it is the unshifted
-// seq1 and the shift sits on rc2.
+// olen - 2 positions and two byte compares.
+//
+// Which gapped offsets can still accept, and where they are tested.  A row
+// reaches the gapped pass only when every ungapped offset, in both
+// directions, was rejected, and this argument holds only for such a row.
+// The gapped walk tests the same strings at the same offsets as the
+// ungapped one (x, y, s and olen alike), with the same limit.  For olen >
+// 50 an ungapped reject means mm50 > limit, mm50 being the mismatches over
+// the first 50 positions.  The gapped test rejects whenever
+// accLeft[cmplen - 2], the count over the first olen - 2 positions, is over
+// the limit; for olen >= 52 that count covers the 50 positions of mm50, so
+// it is at least mm50 and the offset is rejected unread.  olen = min(lx -
+// s, ly) never grows with s, so the offsets that can still accept are a
+// suffix of each direction's walk, from gap_start: s0 = 0 when ly <= 51,
+// else max(0, lx - 51).  Nor do they need rounds of their own: at olen <=
+// 51 the ungapped test's count covers the first min(olen, 50) >= olen - 2
+// positions, so an ungapped round that reaches s0 and rejects all its
+// lanes has, in each lane's count, accLeft[cmplen - 2] plus the mismatches
+// it counted at positions olen - 2 and olen - 1.  Such a round takes the
+// gapped test of its lanes there (gap_accepts: four byte reads, the count
+// less those mismatches, the two last compares; count_prefix reports how
+// far the warp's loop went, since a lane the loop left early has a count
+// that is only a lower bound, and then over the limit) and keeps each
+// direction's first gapped accept; the kernel takes it once both
+// directions' ungapped rounds have rejected, forward before backward, so
+// the first accept stays the reference's.  At lx = ly = 151 and
+// overlap_require 30 that is the last ungapped round of each direction,
+// where a walk of the gapped offsets from 0 took four more rounds a
+// direction.
+//
+// The one-insertion difference itself (d1, or d2 where d1 is -1 or over
+// the limit) is taken once per row, at the winning offset, by the whole
+// warp: each lane a run of positions, the prefix of accLeft -
+// prefix(accRight) across the lanes by shuffles, the least value and the
+// sums by warp reductions (gap_diff_warp).  The roles follow the
+// reference, not the sweep's x and y: going forward ins is the shifted
+// seq1, going back it is the unshifted seq1 and the shift sits on rc2.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// PHASE(k) marks point k of a warp's way through the kernel (0 its start,
+// then the end of each phase it passes): kernel_variants.py builds copies
+// that write a %globaltimer stamp there, or that end the kernel there; in
+// the port's build it is nothing, so neither instantiation changes.
+#ifndef PHASE
+#define PHASE(k)
+#endif
 
 namespace {
 
@@ -159,28 +194,6 @@ __device__ __forceinline__ int count_prefix(const uint32_t* x32, const uint32_t*
   return mm;
 }
 
-// count_prefix for any n >= 0, not only n <= 50: the words run until no
-// lane has more to count with a count within diff_limit.
-__device__ __forceinline__ int count_upto(const uint32_t* x32, const uint32_t* y32,
-                                          int t, int n, int diff_limit) {
-  const int q = t >> 2;
-  const unsigned sh = 8u * (t & 3);
-  int mm = 0;
-  uint32_t lo = n > 0 ? x32[q] : 0u;
-  for (int w = 0;; ++w) {
-    const int left = n - 4 * w;
-    if (left > 0) {
-      const uint32_t hi = x32[q + w + 1];
-      uint32_t d = __funnelshift_r(lo, hi, sh) ^ y32[w];
-      if (left < 4) d &= first_bytes(left);
-      mm += nonzero_bytes(d);
-      lo = hi;
-    }
-    if (!__any_sync(kFullMask, left > 4 && mm <= diff_limit)) break;
-  }
-  return mm;
-}
-
 // First accepted shift s of x against y among 0 <= s < lx - overlap_require,
 // 32 shifts a round: returns true and sets *shift and *olen (warp-uniform).
 __device__ __forceinline__ bool first_accept(const uint32_t* x32, const uint32_t* y32,
@@ -206,32 +219,100 @@ __device__ __forceinline__ bool first_accept(const uint32_t* x32, const uint32_t
   return false;
 }
 
-// first_accept's gapped counterpart: the first shift s < lx - overlap_require
-// of x against y whose overlap (olen = min(lx - s, ly), cmplen = olen - 1)
-// passes the one-insertion test in either role (see the header).
-__device__ __forceinline__ bool first_gap_accept(const uint32_t* x32, const uint32_t* y32,
+// The gapped variant's own copies of count_prefix and first_accept follow:
+// the ungapped kernel keeps the two above as they are, so that its code
+// does not change with the gapped one's.
+
+// count_prefix, and in *counted the positions the warp's loop covered,
+// 4 (w + 1) for the last word w it took: each lane's count is exact over
+// its first min(n, *counted) positions.
+__device__ __forceinline__ int count_prefix_counted(const uint32_t* x32,
+                                                    const uint32_t* y32, int t,
+                                                    int n, int diff_limit,
+                                                    int* counted) {
+  const int q = t >> 2;
+  const unsigned sh = 8u * (t & 3);
+  int mm = 0;
+  uint32_t lo = n > 0 ? x32[q] : 0u;
+  *counted = 4 * kPrefixWords;
+#pragma unroll
+  for (int w = 0; w < kPrefixWords; ++w) {
+    const int left = n - 4 * w;
+    if (left > 0) {
+      const uint32_t hi = x32[q + w + 1];
+      uint32_t d = __funnelshift_r(lo, hi, sh) ^ y32[w];
+      if (left < 4) d &= first_bytes(left);
+      mm += nonzero_bytes(d);
+      lo = hi;
+    }
+    if (!__any_sync(kFullMask, left > 4 && mm <= diff_limit)) {
+      *counted = 4 * (w + 1);
+      break;
+    }
+  }
+  return mm;
+}
+
+// The first shift of x against y whose gapped test can still pass once
+// every ungapped offset of the row has been rejected: the overlap
+// min(lx - s, ly) is at most kCompleteCompareRequire + 1 from there on, and
+// never grows with s (see the header).
+__device__ __forceinline__ int gap_start(int lx, int ly) {
+  return ly <= kCompleteCompareRequire + 1
+             ? 0 : max(0, lx - kCompleteCompareRequire - 1);
+}
+
+// The gapped test of shift s of x against y (olen = min(lx - s, ly),
+// cmplen = olen - 1; see the header) for a lane that the ungapped test of
+// its round has just rejected, from that test's count mm, exact over the
+// first `end` positions.  accLeft[cmplen - 2] is mm less the mismatches at
+// positions olen - 2 and olen - 1 where mm counted them.  Where end < olen
+// - 2, mm is a lower bound of accLeft[cmplen - 2] and, the lane being
+// rejected, over the limit: so is the value taken here, and the test
+// rejects as it should.
+__device__ __forceinline__ bool gap_accepts(const uint32_t* x32, const uint32_t* y32,
+                                            int s, int olen, int end, int mm,
+                                            int limit) {
+  if (olen < 3) return false;
+  const uint8_t* x8 = reinterpret_cast<const uint8_t*>(x32) + s;
+  const uint8_t* y8 = reinterpret_cast<const uint8_t*>(y32);
+  const int a = x8[olen - 2], b = x8[olen - 1], c = y8[olen - 2], d = y8[olen - 1];
+  const int left = mm - (olen - 2 < end && a != c) - (olen - 1 < end && b != d);
+  // the lesser of the two roles' last compares (accRight[cmplen - 1])
+  return left + ((b != c) & (d != a)) <= limit;
+}
+
+// first_accept, and besides: each round that reaches gap_start and finds no
+// ungapped accept takes its shifts' gapped tests (gap_accepts) from the
+// counts it has just made, until one passes; *gap_shift (-1 before) is then
+// the first shift that passed, the gapped walk's answer for this direction
+// should the row's ungapped offsets all be rejected.
+__device__ __forceinline__ bool first_accept_gap(const uint32_t* x32, const uint32_t* y32,
                                                  int lx, int ly, int overlap_require,
                                                  int diff_limit, float diff_pct, int lane,
-                                                 int* shift, int* olen_out) {
-  const uint8_t* x8 = reinterpret_cast<const uint8_t*>(x32);
-  const uint8_t* y8 = reinterpret_cast<const uint8_t*>(y32);
+                                                 int* shift, int* olen_out,
+                                                 int* gap_shift) {
   const int n_cand = lx - overlap_require;
   for (int base = 0; base < n_cand; base += 32) {
     const int s = base + lane;
     const int olen = min(lx - s, ly);
-    const int cm = olen - 1;
-    const bool cand = s < n_cand && cm >= 2;
-    const int left = count_upto(x32, y32, s, cand ? cm - 1 : 0, diff_limit);
-    // the lesser of the two roles' last compares (accRight[cmplen - 1])
-    const int last =
-        cand ? ((x8[s + cm] != y8[cm - 1]) & (y8[cm] != x8[s + cm - 1])) : 1;
-    const bool accept = cand && left + last <= limit_of(olen, diff_limit, diff_pct);
-    const unsigned votes = __ballot_sync(kFullMask, accept);
+    const bool cand = s < n_cand;
+    const int n = cand ? min(max(olen, 0), kCompleteCompareRequire) : 0;
+    int counted;
+    const int mm50 = count_prefix_counted(x32, y32, s, n, diff_limit, &counted);
+    const int limit = limit_of(olen, diff_limit, diff_pct);
+    const unsigned votes = __ballot_sync(kFullMask, cand && mm50 <= limit);
     if (votes) {
       const int win = base + __ffs(votes) - 1;
       *shift = win;
       *olen_out = min(lx - win, ly);
       return true;
+    }
+    if (*gap_shift < 0 && base + 31 >= gap_start(lx, ly)) {
+      const unsigned gap_votes = __ballot_sync(
+          kFullMask,
+          cand && gap_accepts(x32, y32, s, olen, min(n, counted), mm50, limit));
+      if (gap_votes) *gap_shift = base + __ffs(gap_votes) - 1;
     }
   }
   return false;
@@ -333,12 +414,14 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= B) return;  // warp-uniform; no block-wide barrier follows
 
+  PHASE(0);
   const int stride = row_stride(L);
   uint8_t* a = smem + static_cast<size_t>(warp) * 2 * stride;
   uint8_t* b = a + stride;
   stage_row(a, seq1 + static_cast<size_t>(row) * L, L, stride, vec, lane);
   stage_row(b, rc2 + static_cast<size_t>(row) * L, L, stride, vec, lane);
   __syncwarp();
+  PHASE(1);  // staged
   const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
   const uint32_t* b32 = reinterpret_cast<const uint32_t*>(b);
 
@@ -347,37 +430,48 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
   const int l1 = min(max(len1[row], 0), L);
   const int l2 = min(max(len2[row], 0), L);
 
-  int shift = 0, ol = 0, off = 0, df = 0;
-  bool found = first_accept(a32, b32, l1, l2, overlap_require, diff_limit,
-                            diff_pct, lane, &shift, &ol);
+  int shift = 0, ol = 0, off = 0, df = 0, gap_f = -1, gap_b = -1;
+  bool found = kGap ? first_accept_gap(a32, b32, l1, l2, overlap_require,
+                                       diff_limit, diff_pct, lane, &shift, &ol,
+                                       &gap_f)
+                    : first_accept(a32, b32, l1, l2, overlap_require, diff_limit,
+                                   diff_pct, lane, &shift, &ol);
+  PHASE(2);  // ungapped forward rounds
   if (found) {
     off = shift;
     df = count_total(a32, b32, shift, ol, lane);
   } else {
-    found = first_accept(b32, a32, l2, l1, overlap_require, diff_limit,
-                         diff_pct, lane, &shift, &ol);
+    found = kGap ? first_accept_gap(b32, a32, l2, l1, overlap_require,
+                                    diff_limit, diff_pct, lane, &shift, &ol,
+                                    &gap_b)
+                 : first_accept(b32, a32, l2, l1, overlap_require, diff_limit,
+                                diff_pct, lane, &shift, &ol);
     if (found) {
       off = -shift;
       df = count_total(b32, a32, shift, ol, lane);
     }
   }
+  PHASE(3);  // ungapped backward rounds, the winner's full count
   bool gapped = false;
   if (kGap && !found) {
-    gapped = first_gap_accept(a32, b32, l1, l2, overlap_require, diff_limit,
-                              diff_pct, lane, &shift, &ol);
-    if (gapped) {  // ins of d1: the shifted seq1
-      off = shift;
-      df = gap_diff_of(a + shift, b, ol, diff_limit, diff_pct, lane);
-    } else {
-      gapped = first_gap_accept(b32, a32, l2, l1, overlap_require, diff_limit,
-                                diff_pct, lane, &shift, &ol);
-      if (gapped) {  // ins of d1: the unshifted seq1, the shift on rc2
-        off = -shift;
-        df = gap_diff_of(a, b + shift, ol, diff_limit, diff_pct, lane);
-      }
+    // the gapped tests ran inside the ungapped rounds: the first gapped
+    // accept going forward, else going back, is the gapped walk's
+    PHASE(4);
+    PHASE(5);
+    if (gap_f >= 0) {  // ins of d1: the shifted seq1
+      gapped = true;
+      off = gap_f;
+      ol = min(l1 - gap_f, l2);
+      df = gap_diff_of(a + gap_f, b, ol, diff_limit, diff_pct, lane);
+    } else if (gap_b >= 0) {  // ins of d1: the unshifted seq1, the shift on rc2
+      gapped = true;
+      off = -gap_b;
+      ol = min(l1, l2 - gap_b);
+      df = gap_diff_of(a, b + gap_b, ol, diff_limit, diff_pct, lane);
     }
     found = gapped;
   }
+  PHASE(6);  // the gapped winner's one-insertion difference
   if (lane == 0) {
     overlapped[row] = found;
     offset[row] = found ? off : 0;
@@ -385,6 +479,7 @@ __global__ void overlap_sweep_kernel(const uint8_t* __restrict__ seq1,
     diff[row] = found ? df : 0;
     if (kGap) has_gap[row] = gapped;
   }
+  PHASE(7);  // the store
 }
 
 template <bool kGap>

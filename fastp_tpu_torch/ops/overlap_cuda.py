@@ -20,9 +20,12 @@ stops a round once every lane's count has passed diff_limit), the full
 mismatch count being taken once, at the winning offset (the source's header
 note has the argument, the details and the measured times).  The gapped
 accept test likewise needs only the mismatch count before the overlap's
-last two positions and two byte compares, so its rounds are the same
-word-wise count; the one-insertion difference itself is taken once, at
-the winning offset.
+last two positions and two byte compares; since a row gets to it only with
+every ungapped offset rejected, it can pass only where the overlap is at
+most 51, so it is taken inside the ungapped rounds that reach such
+overlaps, from the counts they have just made, and needs no rounds of its
+own; the one-insertion difference itself is taken once, at the winning
+offset.
 
 `sweep_select` and `gap_sweep_select` run the kernel for CUDA tensors and
 the plain PyTorch versions (ops/overlap.py:sweep_select_plain,

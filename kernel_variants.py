@@ -1,24 +1,32 @@
-"""Where the device time of the port's stat_batch and trim_by_sequence
-kernels goes, on one NVIDIA GPU.
+"""Where the device time of the port's stat_batch, trim_by_sequence and
+gapped overlap (overlap_gap_sweep) kernels goes, on one NVIDIA GPU.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [--old-kernel DIR/overlap_sweep.cu ...]
 
-Each kernel source marks the points of a block's way through it with
-PHASE(k) (0 its start, then the end of each phase), a macro that is empty
-in the port's build.  This script builds copies of
-fastp_tpu_torch/csrc/stat_batch.cu and adapter_match.cu with PHASE defined:
-one that writes a %globaltimer stamp at every mark (-DFASTP_STAMPS; thread
-0 of a block), one that is the kernel as the port builds it, and others
-that end the kernel at one mark (-DFASTP_STOP=k: the time of the phases
-before it).  It launches them at the main path's shape (B=8192,
-L=160, chip_smoke.py's bench reads with their adapters; one read a warp for
-adapter_match) and prints each phase's median time over the blocks, and
-each copy's device time per launch from CUDA-graph replays, the copies of a
-kernel in turns (forward, then backward).  It also times a few geometries
-of the full kernels, which their C functions take as arguments.  A copy
-that ends early computes wrong results: it is timed, never used or
-checked.  Needs a card; imports no JAX and nothing of fastp_tpu.
+Each kernel source marks the points of a block's (for the overlap kernel:
+a warp's) way through it with PHASE(k) (0 its start, then the end of each
+phase), a macro that is empty in the port's build.  This script builds
+copies of fastp_tpu_torch/csrc/stat_batch.cu, adapter_match.cu and
+overlap_sweep.cu with PHASE defined: one that writes a %globaltimer stamp
+at every mark (-DFASTP_STAMPS; thread 0 of a block), one that is the
+kernel as the port builds it, and others that end the kernel at one mark
+(-DFASTP_STOP=k: the time of the phases before it).  It launches them at
+the main path's shape (B=8192, L=160: chip_smoke.py's bench reads with
+their adapters, one read a warp for adapter_match; for overlap_gap_sweep,
+at the gap path's setting, chip_smoke.py's three row sets: the bench
+rows, planted insertions, the bench rows with real indels) and prints each
+phase's median time over the blocks, and each copy's device time per
+launch from CUDA-graph replays, the copies of a kernel in turns (forward,
+then backward).  It also times a few geometries of the full kernels, which
+their C functions take as arguments.  --old-kernel names earlier versions
+of overlap_sweep.cu with the same PHASE marks (the source before a change,
+with its marks added, or designs tried against it), each labelled by its
+directory, built, stamped and timed beside the current one; the build
+lines give each copy's registers (ptxas).  A copy that ends early
+computes wrong results: it is timed, never used or checked.  Needs a card;
+imports no JAX and nothing of fastp_tpu.
 """
+import argparse
 import ctypes
 import json
 import os
@@ -35,7 +43,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from fastp_tpu_torch import cuda_build  # noqa: E402
-from fastp_tpu_torch.ops import adapter_cuda, stats_cuda  # noqa: E402
+from fastp_tpu_torch.ops import adapter_cuda, overlap_cuda, stats_cuda  # noqa: E402
+from fastp_tpu_torch.ops.common import rc  # noqa: E402
 
 B, L = chip_smoke.B, chip_smoke.L
 
@@ -47,12 +56,25 @@ PHASES = {
                    "last cluster's output, cluster.sync", "zeroing"],
     "adapter_match": ["staging", "Hamming scan", "prefix tables",
                       "fallback tests, outputs"],
+    "overlap_sweep": ["staging", "ungapped forward rounds",
+                      "ungapped backward rounds, the winner's full count",
+                      "gapped forward rounds", "gapped backward rounds",
+                      "the gapped winner's difference", "the store"],
 }
 # the copies that end at a mark (a stat_batch block may leave only before
 # the first cluster.sync: after it, its shared memory is read by the others)
 STOPS = {
     "stat_batch": [("staging only", 1), ("no flush", 3)],
     "adapter_match": [("staging only", 1), ("no fallbacks", 2)],
+    "overlap_sweep": [("staging only", 1), ("ungapped rounds only", 3)],
+}
+# the C function each library is timed through, and its parameters
+P, I = ctypes.c_void_p, ctypes.c_int
+ENTRY = {
+    "stat_batch": ("stat_batch", [P] * 4 + [I] * 5 + [P] * 3),
+    "adapter_match": ("adapter_match", [P] * 3 + [I] * 11 + [P] * 5),
+    "overlap_sweep": ("overlap_gap_sweep",
+                      [P] * 4 + [I] * 4 + [ctypes.c_float] + [P] * 5 + [I, P]),
 }
 HOOKS = r"""
 #ifndef FASTP_STOP
@@ -74,6 +96,11 @@ __device__ __forceinline__ void fastp_stamp(int k) {
 extern "C" int read_stamps(void* dst) {
   return static_cast<int>(cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps)));
 }
+extern "C" int clear_stamps() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, g_stamps);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_stamps)));
+}
 #define PHASE(k) do { FASTP_STAMP(k); if ((k) == FASTP_STOP) return; } while (0)
 """
 
@@ -83,13 +110,15 @@ def phase_marks(text):
     return [int(k) for k in re.findall(r"^\s*PHASE\((\d+)\);", text, re.M)]
 
 
-def profiled(name):
-    """The source of `name` with PHASE defined (HOOKS before it)."""
-    with open(os.path.join(cuda_build.CSRC, name + ".cu")) as fh:
+def profiled(name, source=None):
+    """The source of `name` (csrc/<name>.cu, or the file `source`) with
+    PHASE defined (HOOKS before it)."""
+    with open(source or os.path.join(cuda_build.CSRC, name + ".cu")) as fh:
         text = fh.read()
     if phase_marks(text) != list(range(len(PHASES[name]) + 1)):
-        raise SystemExit("kernel_variants.py: %s.cu's PHASE marks are not "
-                         "0 to %d in order" % (name, len(PHASES[name])))
+        raise SystemExit("kernel_variants.py: %s's PHASE marks are not "
+                         "0 to %d in order"
+                         % (source or name + ".cu", len(PHASES[name])))
     return HOOKS + text
 
 
@@ -114,13 +143,13 @@ def phase_times(fn_read, n_units, phases):
     return out
 
 
-def build(work, name, stop=None, stamps=False):
-    """Writes the profiled source of `name` and starts nvcc on it, ending
-    the kernel at mark `stop` if given, stamping every mark with `stamps`;
-    returns (library path, process)."""
+def build(work, name, stop=None, stamps=False, source=None):
+    """Writes the profiled source of `name` (or of the file `source`) and
+    starts nvcc on it, ending the kernel at mark `stop` if given, stamping
+    every mark with `stamps`; returns (library path, process)."""
     src = os.path.join(work, "%s_%d.cu" % (name, len(os.listdir(work))))
     with open(src, "w") as fh:
-        fh.write(profiled(name))
+        fh.write(profiled(name, source))
     lib = src[:-3] + ".so"
     flags = (([] if stop is None else ["-DFASTP_STOP=%d" % stop])
              + (["-DFASTP_STAMPS"] if stamps else []))
@@ -166,45 +195,83 @@ def trim_call(fn, rows, lens, ad, warps=None, blocks=None):
     return call
 
 
-def main():
+def gap_call(fn, tensors):
+    """A launch of overlap_gap_sweep (a copy's C function) at the gap path's
+    setting on preallocated outputs."""
+    return chip_smoke._raw_launcher(fn, tensors, chip_smoke.OVERLAP_SETTINGS[0],
+                                    overlap_cuda.rows_per_block(L), gap=True)[0]
+
+
+def gap_row_sets(rng):
+    """chip_smoke.GAP_ROW_SETS at B x L: {name: (seq1, rc2, len1, len2)} as
+    CUDA tensors."""
+    s1, l1, s2, l2 = chip_smoke.gap_rows(int(rng.integers(1 << 30)), B=B, L=L)
+    rows = {"bench": chip_smoke._bench_rows(rng),
+            "planted": (s1, rc(torch.from_numpy(s2), torch.from_numpy(l2))
+                        .numpy(), l1, l2),
+            "indel151": chip_smoke.indel151_rows(rng)}
+    return {name: tuple(torch.from_numpy(x).cuda() for x in rows[name])
+            for name in chip_smoke.GAP_ROW_SETS}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-kernel", metavar="DIR/overlap_sweep.cu",
+                    nargs="+", default=[],
+                    help="earlier versions of overlap_sweep.cu with the same "
+                         "PHASE marks, each named by its directory, "
+                         "profiled and timed beside the current one")
+    args = ap.parse_args(argv)
     chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
     card = chip_smoke.phase_device()
     os.makedirs(os.path.join(ROOT, "_smoke"), exist_ok=True)
+    variants = [(name, "", None) for name in PHASES]
+    for path in args.old_kernel:
+        tag = os.path.basename(os.path.dirname(os.path.abspath(path))) + " "
+        chip_smoke.check(all(t != tag for _, t, _ in variants),
+                         "--old-kernel: two files in directories named %s"
+                         % tag)
+        variants.append(("overlap_sweep", tag, os.path.abspath(path)))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_smoke")) as work:
-        jobs = {(name, what): build(work, name, stop)
-                for name in PHASES
-                for what, stop in [("full", None)] + STOPS[name]}
-        jobs.update({(name, "stamped"): build(work, name, stamps=True)
-                     for name in PHASES})
+        jobs = {}
+        for name, tag, source in variants:
+            for what, stop in [("full", None)] + STOPS[name]:
+                jobs[name, tag + what] = build(work, name, stop, source=source)
+            jobs[name, tag + "stamped"] = build(work, name, stamps=True,
+                                                source=source)
         libs = {}
         for key, (lib, proc) in jobs.items():
             _, err = proc.communicate()
             chip_smoke.check(proc.returncode == 0, "nvcc failed for %s: %s"
                              % (key, err[-2000:]))
             libs[key] = ctypes.CDLL(lib)
-        p, i = ctypes.c_void_p, ctypes.c_int
+            if key[1].endswith("full"):
+                print("%s, %s: ptxas %s" % (key[0], key[1], " | ".join(
+                    ln.split(":", 1)[-1].strip() for ln in err.splitlines()
+                    if "registers" in ln or "Compiling entry" in ln)),
+                    flush=True)
         for (name, _), lib in libs.items():
-            fn = getattr(lib, name)
+            fn = getattr(lib, ENTRY[name][0])
             fn.restype = ctypes.c_int
-            fn.argtypes = ([p] * 4 + [i] * 5 + [p] * 3 if name == "stat_batch"
-                           else [p] * 3 + [i] * 11 + [p] * 5)
-            lib.read_stamps.argtypes = [p]
+            fn.argtypes = ENTRY[name][1]
+            lib.read_stamps.argtypes = [P]
             lib.read_stamps.restype = ctypes.c_int
+            lib.clear_stamps.restype = ctypes.c_int
         rng = np.random.default_rng(42)
         bench = chip_smoke._bench_reads(rng)
         bases, quals, lens = (torch.from_numpy(x).cuda() for x in bench[0])
         include = torch.from_numpy(rng.random(B) < 0.9).cuda()
-        args = (bases, quals, lens, include)
+        args_stat = (bases, quals, lens, include)
         ad = torch.frombuffer(bytearray(chip_smoke.BENCH_ADAPTERS[0].encode()),
                               dtype=torch.uint8).cuda()
         full_stat = libs["stat_batch", "full"].stat_batch
         full_trim = libs["adapter_match", "full"].adapter_match
         timed = {
             "stat_batch copies": chip_smoke._in_turns({
-                what: stat_call(libs["stat_batch", what].stat_batch, args)
+                what: stat_call(libs["stat_batch", what].stat_batch, args_stat)
                 for what, _ in [("full", None)] + STOPS["stat_batch"]}),
             "stat_batch geometry (cluster, rows a chunk)": chip_smoke._in_turns({
-                "%d, %d" % (c, r): stat_call(full_stat, args, c, r)
+                "%d, %d" % (c, r): stat_call(full_stat, args_stat, c, r)
                 for c, r in ((8, 128), (4, 128), (1, 128), (8, 64))}),
             "trim_by_sequence copies": chip_smoke._in_turns({
                 what: trim_call(libs["adapter_match", what].adapter_match,
@@ -221,7 +288,7 @@ def main():
         stamps = {}
         for name, call, units in (
                 ("stat_batch", stat_call(libs["stat_batch", "stamped"]
-                                         .stat_batch, args),
+                                         .stat_batch, args_stat),
                  np.prod(stats_cuda.geometry(B, L)[:2])),
                 ("adapter_match", trim_call(libs["adapter_match", "stamped"]
                                             .adapter_match, bases, lens, ad),
@@ -235,6 +302,31 @@ def main():
                   % (name, "blocks" if name == "stat_batch" else
                      "blocks' first warps", json.dumps(stamps[name])),
                   flush=True)
+        # the gapped overlap kernel, on each row set: its copies (and the
+        # old source's) in turns, then each stamped copy's phases
+        tags = [tag for name, tag, _ in variants if name == "overlap_sweep"]
+        copies = [tag + what for tag in tags
+                  for what, _ in [("full", None)] + STOPS["overlap_sweep"]]
+        for rows, tensors in gap_row_sets(np.random.default_rng(42)).items():
+            timed["overlap_gap_sweep copies, %s rows" % rows] = \
+                chip_smoke._in_turns({what: gap_call(
+                    libs["overlap_sweep", what].overlap_gap_sweep, tensors)
+                    for what in copies})
+            for tag in tags:
+                lib = libs["overlap_sweep", tag + "stamped"]
+                torch.cuda.synchronize()
+                chip_smoke.check(lib.clear_stamps() == 0, "clear_stamps failed")
+                call = gap_call(lib.overlap_gap_sweep, tensors)
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+                key = "%soverlap_gap_sweep, %s rows" % (tag, rows)
+                stamps[key] = phase_times(
+                    lib.read_stamps, B // overlap_cuda.rows_per_block(L),
+                    PHASES["overlap_sweep"])
+                print("%s phases (median us over the blocks' first warps "
+                      "that passed both marks, the last of 3 launches): %s"
+                      % (key, json.dumps(stamps[key])), flush=True)
         for what, turns in timed.items():
             print("%s, B=%d L=%d, ms a launch in turns: %s"
                   % (what, B, L, chip_smoke._turns_text(turns)), flush=True)

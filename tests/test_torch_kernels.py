@@ -570,7 +570,8 @@ def test_adapter_geometry_fits(L, alen):
     assert adapter_cuda.geometry(8192, 160, 33)["staged"]
 
 
-@pytest.mark.parametrize("name", ["stat_batch", "adapter_match"])
+@pytest.mark.parametrize("name", ["stat_batch", "adapter_match",
+                                  "overlap_sweep"])
 def test_kernel_variants_apply(name):
     """kernel_variants.py's copies of a kernel define its PHASE marks: the
     source has one mark for each end of a phase the script names, in order,

@@ -18,17 +18,18 @@ mask of the last word, the 50-position prefix that ends two bytes into
 word 12, the round that ends once every lane's count has passed diff_limit,
 32 offsets a round with the lowest set bit of the ballot winning, forward
 rounds before backward, the full count split over the lanes; with
-`gap`, the gapped rounds' word-wise count over cmplen - 1 positions with
-its early exit and the two last compares, and the one-insertion difference
-at the winner as the warp takes it, a run of positions a lane and a scan
-across lanes), and the model is held exactly to the plain versions and to
-fastp_tpu's loop on chip_smoke.py's adversarial rows; a hypothesis test
-holds the gapped accept test and the warp's difference to _gap_diff.  A
-read outside a staged row raises in the model, where the kernel would read
-another row's bytes.
+`gap`, the gapped test taken inside the ungapped rounds that reach an
+overlap of 51, from their counts less the mismatches counted at the
+overlap's last two positions, plus the two last compares, and the
+one-insertion difference at the winner as the warp takes it, a run of
+positions a lane and a scan across lanes), and the model is held exactly
+to the plain versions, which walk every offset, and to fastp_tpu's loop on
+chip_smoke.py's adversarial rows, planted indels and rows rejected
+ungapped by one mismatch at olen 45 to 53; a hypothesis test holds the
+gapped accept test and the warp's difference to _gap_diff.  A read outside
+a staged row raises in the model, where the kernel would read another
+row's bytes.
 """
-import itertools
-
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -39,8 +40,9 @@ from fastp_tpu.ops.overlap_pallas import analyze_pallas
 from fastp_tpu_torch.ops import overlap as t_overlap
 from fastp_tpu_torch.ops import launches, overlap_cuda
 from fastp_tpu_torch.ops.common import rc
-from chip_smoke import (ACGT, _adversarial_rows, gap_needed_compares,
-                        gap_rows, needed_compares, place_overlap)
+from chip_smoke import (ACGT, BENCH_ADAPTERS, _adversarial_rows,
+                        gap_needed_compares, gap_rows, needed_compares,
+                        place_overlap, plant_indels)
 from hypothesis import given, settings, strategies as st
 from test_torch_cli import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -240,6 +242,98 @@ def narrow_rows(L=24):
     return s1, len1, s2, len1.copy()
 
 
+ADAPTERS = [np.frombuffer(a.encode(), np.uint8) for a in BENCH_ADAPTERS]
+_COMP = np.zeros(256, np.uint8)
+_COMP[np.frombuffer(b"ACGTN", np.uint8)] = np.frombuffer(b"TGCAN", np.uint8)
+
+
+def indel_pairs(seed, B=128, L=160):
+    """151-base pairs of inserts 40 to 300 (reads past a short insert go
+    on into the bench adapters, then random bases), each with one insertion
+    or deletion planted in read 2 inside the overlap (plant_indels): in the
+    first half of the rows anywhere, with two substitutions; in the second
+    within the overlap's last three bases, with four, where some short
+    overlaps take a gapped accept.  Returns (s1, len1, s2, len2)."""
+    rng = np.random.default_rng(seed)
+    n = 151
+    inserts = rng.integers(40, 301, B)
+    s1, rc2 = np.zeros((B, L), np.uint8), np.zeros((B, L), np.uint8)
+    for r, ins in enumerate(inserts):
+        frag = rng.choice(ACGT, ins)
+        reads = [np.concatenate([x, ad, rng.choice(ACGT, n)])[:n]
+                 for x, ad in ((frag, ADAPTERS[0]),
+                               (_COMP[frag[::-1]], ADAPTERS[1]))]
+        s1[r, :n], rc2[r, :n] = reads[0], _COMP[reads[1][::-1]]
+    lens = np.full(B, n, np.int32)
+    # the overlap: forward at insert - 151 over 302 - insert bases, or
+    # backward at -(151 - insert) over the insert
+    offset = inserts - n
+    olen = np.where(inserts >= n, 2 * n - inserts, inserts)
+    half = np.arange(B) >= B // 2
+    rows = (s1, rc2, lens, lens.copy())
+    rows = [np.where(half.reshape((B,) + (1,) * (a.ndim - 1)), b, a)
+            for a, b in zip(plant_indels(rows, ~half, offset, olen, rng, 2),
+                            plant_indels(rows, half, offset, olen, rng, 4, 3))]
+    s2 = rc(torch.from_numpy(rows[1]), torch.from_numpy(rows[3])).numpy()
+    return rows[0], rows[2], s2, rows[3]
+
+
+def boundary_rows(setting, seed=19, L=96):
+    """Rows that the ungapped test rejects by one mismatch at an overlap of
+    45, 49 or 50 to 53: `limit` substitutions in the first 40 bases and one
+    more at olen - 1 or olen - 2 where that is among the first 50 (mm50 =
+    limit + 1), else at 49, and the overlap's end made so that the gapped
+    test's two last compares pass.  At olen 51 and below the gapped count
+    over olen - 2 positions misses that last mismatch, so the gapped test
+    accepts there; at 52 and 53 it covers all 50 positions of mm50 and
+    rejects.  At olen 45 and 49 with the mismatch at olen - 2, the ungapped
+    round's loop leaves the lane one position early (its count past
+    diff_limit at its last word but one), so the kernel's gapped test, taken
+    from that count, must not subtract the position it did not count.  In
+    half of the forward rows read 2 goes on for 8 bases past the overlap,
+    and the first forward copy of each kind sits at offset 31: there the
+    first offset with olen <= 51 is the planted one, the last lane of a
+    round.
+    Eight copies of each kind, forward and backward offsets.  Returns (s1,
+    len1, s2, len2, want) with want = (offset, overlap_len, gapped accept
+    expected there) per row."""
+    dl, _, pct = setting
+    rng = np.random.default_rng(seed)
+    kinds = [(n, q) for n in (45, 49, 50, 51, 52, 53)
+             for q in sorted({min(n - 2, 49), min(n - 1, 49)})]
+    B = 8 * len(kinds)
+    rows = (np.zeros((B, L), np.uint8), np.zeros((B, L), np.uint8),
+            np.zeros(B, np.int32), np.zeros(B, np.int32))
+    want = []
+    for r in range(B):
+        n, q = kinds[r // 8]
+        limit = int(_limit(np.array([n]), dl, pct)[0])
+        a = rng.choice(ACGT, n)
+        b = a.copy()
+        subs = rng.choice(40, limit, replace=False)
+        b[subs] = _next(a[subs])
+        # one of the two last compares passes: b[n - 1] == a[n - 2]; a[n - 1]
+        # equal to it too where position n - 1 is no mismatch
+        b[n - 1] = a[n - 2]
+        if q == n - 1:   # the last mismatch on the overlap's last base
+            a[n - 1] = _next(a[n - 2])
+        else:
+            a[n - 1] = a[n - 2]
+            b[q] = _next(a[q])
+        forward = r % 2 == 0
+        # the first copy of a kind at forward offset 31: its overlap's
+        # first offset with olen <= 51 is the last lane of a round
+        shift = 31 if r % 8 == 0 else int(rng.integers(0 if forward else 1, 12))
+        place_overlap(rows, r, a, b, shift, forward, rng)
+        if r % 4 == 0:   # read 2 goes on past read 1's end, as it mostly does
+            rows[1][r, n:n + 8] = rng.choice(ACGT, 8)
+            rows[3][r] = n + 8
+        want.append((shift if forward else -shift, n, n <= 51))
+    s1, rc2, len1, len2 = rows
+    s2 = rc(torch.from_numpy(rc2), torch.from_numpy(len2)).numpy()
+    return s1, len1, s2, len2, np.array(want)
+
+
 GAP_CASES = {
     "corpus": (lambda: _corpus(9, L=96), (5, 30, 0.2)),
     "dirty": (lambda: _dirty(10, B=48), (5, 30, 0.2)),
@@ -247,6 +341,9 @@ GAP_CASES = {
     "edges": (lambda: gap_edge_rows()[:4], (5, 30, 0.2)),
     "tiny_overlaps": (tiny_overlap_rows, (5, 0, 0.2)),
     "narrow": (narrow_rows, (5, 30, 0.2)),
+    "indels": (lambda: indel_pairs(18), (5, 30, 0.2)),
+    "boundary": (lambda: boundary_rows((5, 30, 0.2))[:4], (5, 30, 0.2)),
+    "boundary_tight": (lambda: boundary_rows((3, 10, 0.1))[:4], (3, 10, 0.1)),
 }
 
 
@@ -281,6 +378,52 @@ def test_gapped_matches_analyze_loop(rows):
         assert has_gap[6] and int(want["overlap_len"][6]) == 3
     if rows == "narrow":
         assert not np.asarray(want["overlapped"]).any()
+
+
+@pytest.mark.parametrize("rows", list(GAP_CASES))
+def test_no_gapped_accept_above_olen_51(rows):
+    """The argument behind the gapped kernel's first gapped offset
+    (csrc/overlap_sweep.cu, gap_start): a row that reaches the gapped pass
+    had every ungapped offset rejected, so at olen >= 52, where the gapped
+    count over olen - 2 positions covers the 50 of mm50, no gapped offset
+    accepts.  No row of fastp_tpu's loop with allow_gap, nor of the plain
+    gapped version, has a gapped accept there: the gap cases, 151-base
+    pairs with real indels, and rows rejected ungapped by one mismatch at
+    olen 50 to 53."""
+    make, setting = GAP_CASES[rows]
+    s1, l1, s2, l2 = make()
+    want = {k: np.asarray(v) for k, v in j_overlap._analyze_loop(
+        s1, l1, s2, l2, *setting, True).items()}
+    rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2)).numpy()
+    got = gap_sweep_select_plain_np(s1, rc2, l1, l2, *setting)
+    for out in (want, got):
+        has_gap = out["has_gap"].astype(bool)
+        assert not (has_gap & (out["overlap_len"] >= 52)).any()
+    if rows in ("gap", "edges", "indels", "boundary", "boundary_tight"):
+        assert got["has_gap"].any() and want["has_gap"].any()
+
+
+@pytest.mark.parametrize("setting", [(5, 30, 0.2), (3, 10, 0.1)])
+def test_boundary_rows_accept_gapped_only_below_olen_52(setting):
+    """boundary_rows against the plain version: the ungapped pass rejects
+    every planted offset (mm50 = limit + 1); the gapped pass accepts there
+    at olen 45 to 51, where its count misses the last mismatch, and not at
+    52 and 53, where it covers all of mm50; the kernel's model, which takes
+    the gapped test only in rounds that reach an overlap of 51, gives the
+    same on every key."""
+    s1, l1, s2, l2, planted = boundary_rows(setting)
+    rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2)).numpy()
+    ungapped = dict(zip(KEYS, (x.numpy() for x in t_overlap.sweep_select_plain(
+        *(torch.from_numpy(x) for x in (s1, rc2, l1, l2)), *setting))))
+    got = gap_sweep_select_plain_np(s1, rc2, l1, l2, *setting)
+    at = (got["offset"] == planted[:, 0]) & got["has_gap"].astype(bool)
+    assert not (ungapped["overlapped"]
+                & (ungapped["offset"] == planted[:, 0])).any()
+    assert np.array_equal(at, planted[:, 2] == 1)
+    assert np.array_equal(got["overlap_len"][at], planted[at, 1])
+    assert set(planted[:, 1]) == {45, 49, 50, 51, 52, 53}
+    _same(kernel_model(s1, rc2, l1, l2, *setting, gap=True), got,
+          KEYS + ("has_gap",))
 
 
 def test_edge_rows_take_d2_where_d1_is_minus_one():
@@ -335,16 +478,18 @@ def _first_bytes(n):
     return ((np.uint64(1) << (8 * n).astype(np.uint64)) - np.uint64(1)).astype(U32)
 
 
-def _count_prefix(x32, y32, t, n, dl, words=13):
+def _count_prefix(x32, y32, t, n, dl):
     """count_prefix of the kernel for the 32 lanes of a warp: shifts t,
-    lengths 0 <= n <= 50 (count_upto with words=None: any n >= 0).  Lanes
-    with n == 0 read nothing; the warp leaves the loop once no lane both has
-    words left and a count within dl."""
+    lengths 0 <= n <= 50 (13 words; a longer n is a fault of the caller).
+    Lanes with n == 0 read nothing; the warp leaves the loop once no lane
+    both has words left and a count within dl.  Returns the counts and
+    `counted`, the positions the warp's loop covered (4 per word it took)."""
+    assert n.max() <= 50, "count_prefix counts at most 50 positions"
     q, sh = t >> 2, 8 * (t & 3)
     mm = np.zeros(len(t), np.int64)
     lo = np.zeros(len(t), U32)
     lo[n > 0] = x32[q[n > 0]]
-    for w in (range(words) if words else itertools.count()):
+    for w in range(13):
         left = n - 4 * w
         on = left > 0
         hi = np.zeros(len(t), U32)
@@ -355,7 +500,7 @@ def _count_prefix(x32, y32, t, n, dl, words=13):
         lo = np.where(on, hi, lo)
         if not np.any((left > 4) & (mm <= dl)):   # __any_sync
             break
-    return mm
+    return mm, 4 * (w + 1)
 
 
 def _limit(olen, dl, pct):
@@ -363,19 +508,56 @@ def _limit(olen, dl, pct):
     return np.minimum(lim, dl)
 
 
-def _first_accept(x32, y32, lx, ly, dl, req, pct):
+def _gap_start(lx, ly):
+    """gap_start: the first shift whose overlap is at most 51, from which
+    on every overlap is (0 when ly <= 51)."""
+    return 0 if ly <= 51 else max(0, lx - 51)
+
+
+def _gap_accepts(x32, y32, s, olen, end, mm, limit):
+    """gap_accepts for 32 lanes the ungapped test has just rejected: mm, the
+    lane's count, exact over its first `end` positions, less its mismatches
+    at positions olen - 2 and olen - 1 where it counted them, plus the
+    lesser of the two last compares, within the limit (olen >= 3; the four
+    bytes read only there)."""
+    x8, y8 = x32.view(np.uint8), y32.view(np.uint8)
+    ok = np.flatnonzero(olen >= 3)
+    a, b = x8[s[ok] + olen[ok] - 2], x8[s[ok] + olen[ok] - 1]
+    c, d = y8[olen[ok] - 2], y8[olen[ok] - 1]
+    left = (mm[ok] - ((olen[ok] - 2 < end[ok]) & (a != c))
+            - ((olen[ok] - 1 < end[ok]) & (b != d)))
+    accept = np.zeros(len(s), bool)
+    accept[ok] = left + ((b != c) & (d != a)) <= limit[ok]
+    return accept
+
+
+def _first_set(base, flags):
+    """base + the lowest lane whose flag is set (__ballot_sync, __ffs - 1),
+    or None."""
+    votes = int(np.sum(flags.astype(np.int64) << LANES))
+    return base + (votes & -votes).bit_length() - 1 if votes else None
+
+
+def _first_accept(x32, y32, lx, ly, dl, req, pct, gap=False):
+    """first_accept: (shift, olen) of the first ungapped accept, or None;
+    and, with `gap`, the first shift that passed the gapped test in the
+    rounds from _gap_start that accepted nothing (gap_accepts), or None."""
     n_cand = lx - req
+    gap_shift = None
     for base in range(0, max(n_cand, 0), 32):
         s = base + LANES
         olen = np.minimum(lx - s, ly)
-        n = np.where(s < n_cand, np.minimum(np.maximum(olen, 0), 50), 0)
-        accept = (s < n_cand) & (_count_prefix(x32, y32, s, n, dl)
-                                 <= _limit(olen, dl, pct))
-        votes = int(np.sum(accept.astype(np.int64) << LANES))
-        if votes:
-            win = base + (votes & -votes).bit_length() - 1   # __ffs - 1
-            return win, min(lx - win, ly)
-    return None
+        cand = s < n_cand
+        n = np.where(cand, np.minimum(np.maximum(olen, 0), 50), 0)
+        mm, counted = _count_prefix(x32, y32, s, n, dl)
+        limit = _limit(olen, dl, pct)
+        win = _first_set(base, cand & (mm <= limit))
+        if win is not None:
+            return (win, min(lx - win, ly)), gap_shift
+        if gap and gap_shift is None and base + 31 >= _gap_start(lx, ly):
+            gap_shift = _first_set(base, cand & _gap_accepts(
+                x32, y32, s, olen, np.minimum(n, counted), mm, limit))
+    return None, gap_shift
 
 
 def _count_total(x32, y32, t, olen):
@@ -389,30 +571,6 @@ def _count_total(x32, y32, t, olen):
             d = d & _first_bytes(np.full(1, left))
         per_lane[w % 32] += int(_nonzero_bytes(d)[0])
     return int(per_lane.sum())
-
-
-def _first_gap_accept(x32, y32, lx, ly, dl, req, pct):
-    """first_gap_accept: 32 shifts a round, accepted where cmplen >= 2 and
-    the count over the first cmplen - 1 positions plus the lesser of the
-    two last compares is within the limit."""
-    x8, y8 = x32.view(np.uint8), y32.view(np.uint8)
-    n_cand = lx - req
-    for base in range(0, max(n_cand, 0), 32):
-        s = base + LANES
-        olen = np.minimum(lx - s, ly)
-        cm = olen - 1
-        cand = (s < n_cand) & (cm >= 2)
-        left = _count_prefix(x32, y32, s, np.where(cand, cm - 1, 0), dl, None)
-        last = np.ones(32, np.int64)
-        c = np.flatnonzero(cand)
-        last[c] = (x8[s[c] + cm[c]] != y8[cm[c] - 1]) \
-            & (y8[cm[c]] != x8[s[c] + cm[c] - 1])
-        accept = cand & (left + last <= _limit(olen, dl, pct))
-        votes = int(np.sum(accept.astype(np.int64) << LANES))
-        if votes:
-            win = base + (votes & -votes).bit_length() - 1
-            return win, min(lx - win, ly)
-    return None
 
 
 def _gap_diff_warp(ins8, norm8, cm, limit):
@@ -461,26 +619,23 @@ def kernel_model(seq1, rc2, len1, len2, dl, req, pct, gap=False):
         a32, b32 = _staged_words(seq1[r], L), _staged_words(rc2[r], L)
         l1 = min(max(int(len1[r]), 0), L)
         l2 = min(max(int(len2[r]), 0), L)
-        hit = _first_accept(a32, b32, l1, l2, dl, req, pct)
+        hit, gap_f = _first_accept(a32, b32, l1, l2, dl, req, pct, gap)
         if hit is not None:
             out[:4, r] = 1, hit[0], hit[1], _count_total(a32, b32, *hit)
             continue
-        hit = _first_accept(b32, a32, l2, l1, dl, req, pct)
+        hit, gap_b = _first_accept(b32, a32, l2, l1, dl, req, pct, gap)
         if hit is not None:
             out[:4, r] = 1, -hit[0], hit[1], _count_total(b32, a32, *hit)
             continue
-        if not gap:
-            continue
         a8, b8 = a32.view(np.uint8), b32.view(np.uint8)
-        hit = _first_gap_accept(a32, b32, l1, l2, dl, req, pct)
-        if hit is not None:    # ins of d1: the shifted seq1
-            out[:, r] = 1, hit[0], hit[1], _gap_diff_of(
-                a8[hit[0]:], b8, hit[1], dl, pct), 1
-            continue
-        hit = _first_gap_accept(b32, a32, l2, l1, dl, req, pct)
-        if hit is not None:    # ins of d1: seq1 unshifted, the shift on rc2
-            out[:, r] = 1, -hit[0], hit[1], _gap_diff_of(
-                a8, b8[hit[0]:], hit[1], dl, pct), 1
+        if gap_f is not None:    # ins of d1: the shifted seq1
+            olen = min(l1 - gap_f, l2)
+            out[:, r] = 1, gap_f, olen, _gap_diff_of(
+                a8[gap_f:], b8, olen, dl, pct), 1
+        elif gap_b is not None:  # ins of d1: seq1 unshifted, the shift on rc2
+            olen = min(l1, l2 - gap_b)
+            out[:, r] = 1, -gap_b, olen, _gap_diff_of(
+                a8, b8[gap_b:], olen, dl, pct), 1
     return dict(zip(KEYS + ("has_gap",), out if gap else out[:4]))
 
 
@@ -542,29 +697,44 @@ def _gap_model_case(name):
                 "adversarial_odd": (37, 120)}[name]
         return (*_adversarial_rows(np.random.default_rng(B + L + 1), B=B,
                                    L=L), (5, 30, 0.2))
+    setting = {"tiny_overlaps": (5, 0, 0.2), "boundary_tight": (3, 10, 0.1),
+               "boundary_req0": (5, 0, 0.2)}.get(name, (5, 30, 0.2))
     s1, l1, s2, l2 = {"gap": lambda: gap_rows(16, B=64),
                       "edges": lambda: gap_edge_rows(17)[:4],
                       "tiny_overlaps": tiny_overlap_rows,
-                      "narrow": narrow_rows}[name]()
-    setting = (5, 0, 0.2) if name == "tiny_overlaps" else (5, 30, 0.2)
+                      "narrow": narrow_rows,
+                      "indels": lambda: indel_pairs(20),
+                      "boundary": lambda: boundary_rows(setting, 21)[:4],
+                      "boundary_tight": lambda: boundary_rows(setting, 22)[:4],
+                      "boundary_req0": lambda: boundary_rows(setting, 23)[:4],
+                      }[name]()
     rc2 = rc(torch.from_numpy(s2), torch.from_numpy(l2)).numpy()
     return s1, rc2, l1, l2, setting
 
 
 @pytest.mark.parametrize("name", ["adversarial", "adversarial_pe251",
                                   "adversarial_odd", "gap", "edges",
-                                  "tiny_overlaps", "narrow"])
+                                  "tiny_overlaps", "narrow", "indels",
+                                  "boundary", "boundary_tight",
+                                  "boundary_req0"])
 def test_gap_kernel_model_matches_plain(name):
-    """The gapped variant's model (the ungapped rounds, then gapped rounds
-    forward and backward, the one-insertion difference at the winner) held
-    to the plain gapped version on every key, has_gap included: any byte
-    value, the PE251 width, a width no multiple of 16, planted insertions in
-    either read at forward and backward offsets, d1 = -1 with d2 accepting,
-    olen 50 and 51, cmplen < 2 and a width below overlap_require."""
+    """The gapped variant's model (the ungapped rounds, with the gapped
+    tests of those that reach an overlap of 51 taken from their counts, the
+    one-insertion difference at the winner) held to the plain gapped
+    version, which walks every offset, on every key, has_gap included: any
+    byte value, the PE251 width, a width no multiple of 16, planted
+    insertions in either read at forward and backward offsets, d1 = -1 with
+    d2 accepting, olen 50 and 51, cmplen < 2, a width below
+    overlap_require, 151-base pairs with real indels and rows rejected
+    ungapped by one mismatch at olen 45 to 53, at overlap_require 0 too;
+    the plain version has no gapped accept above olen 51 on any of them."""
     seq1, rc2, l1, l2, setting = _gap_model_case(name)
     got = kernel_model(seq1, rc2, l1, l2, *setting, gap=True)
     want = gap_sweep_select_plain_np(seq1, rc2, l1, l2, *setting)
     _same(got, want, KEYS + ("has_gap",))
+    assert not (want["has_gap"].astype(bool) & (want["overlap_len"] >= 52)).any()
+    if name in ("gap", "edges", "boundary", "boundary_tight", "boundary_req0"):
+        assert got["has_gap"].any()
     if name in ("gap", "edges"):
         assert got["has_gap"].sum() > len(l1) // 2
         assert (got["offset"][got["has_gap"] > 0] < 0).any()
@@ -572,14 +742,15 @@ def test_gap_kernel_model_matches_plain(name):
 
 
 def test_gap_kernel_model_reads_no_byte_past_a_length():
-    seq1, rc2, l1, l2, setting = _gap_model_case("gap")
-    base = kernel_model(seq1, rc2, l1, l2, *setting, gap=True)
-    pos = np.arange(seq1.shape[1])
-    seq1b, rc2b = seq1.copy(), rc2.copy()
-    seq1b[pos[None, :] >= l1[:, None]] ^= 0xff
-    rc2b[pos[None, :] >= l2[:, None]] ^= 0xff
-    _same(kernel_model(seq1b, rc2b, l1, l2, *setting, gap=True), base,
-          KEYS + ("has_gap",))
+    for name in ("gap", "indels"):
+        seq1, rc2, l1, l2, setting = _gap_model_case(name)
+        base = kernel_model(seq1, rc2, l1, l2, *setting, gap=True)
+        pos = np.arange(seq1.shape[1])
+        seq1b, rc2b = seq1.copy(), rc2.copy()
+        seq1b[pos[None, :] >= l1[:, None]] ^= 0xff
+        rc2b[pos[None, :] >= l2[:, None]] ^= 0xff
+        _same(kernel_model(seq1b, rc2b, l1, l2, *setting, gap=True), base,
+              KEYS + ("has_gap",))
 
 
 @st.composite
@@ -612,22 +783,23 @@ def _lanes_of_a_row(draw):
 @settings(max_examples=200, deadline=None, database=None)
 @given(case=_lanes_of_a_row())
 def test_word_wise_gap_test_equals_gap_diff(case):
-    """The kernel's gapped accept test (the word-wise count over the first
-    cmplen - 1 positions, the warp leaving the loop once every lane's count
-    has passed diff_limit, plus the lesser of the two last compares) equals
-    "either role's gap_diff passes the limit", and its warp-wise
-    one-insertion difference equals _gap_diff in both roles, lane by lane."""
+    """The kernel's gapped accept test, taken from an ungapped round's count
+    (the word-wise count over the first min(olen, 50) positions, the warp
+    leaving the loop once every lane's count has passed diff_limit, less the
+    mismatches it counted at positions olen - 2 and olen - 1, plus the
+    lesser of the two last compares), equals "either role's gap_diff passes
+    the limit" on every lane whose ungapped test it rejected, overlaps above
+    51 among them; and its warp-wise one-insertion difference equals
+    _gap_diff in both roles, lane by lane."""
     x, y, t, cm, limit, dl = case
     L = len(x)
     x32, y32 = _staged_words(x, L), _staged_words(y, L)
     x8, y8 = x32.view(np.uint8), y32.view(np.uint8)
-    cand = cm >= 2
-    left = _count_prefix(x32, y32, t, np.where(cand, cm - 1, 0), dl, None)
-    last = np.ones(32, np.int64)
-    c = np.flatnonzero(cand)
-    last[c] = (x8[t[c] + cm[c]] != y8[cm[c] - 1]) \
-        & (y8[cm[c]] != x8[t[c] + cm[c] - 1])
-    accept = cand & (left + last <= limit)
+    olen = cm + 1
+    n = np.minimum(np.maximum(olen, 0), 50)
+    mm, counted = _count_prefix(x32, y32, t, n, dl)
+    rejected = mm > limit   # the lanes whose gapped test the kernel takes
+    accept = _gap_accepts(x32, y32, t, olen, np.minimum(n, counted), mm, limit)
     xpad = np.concatenate([x, np.zeros(L, np.uint8)])
     ins = torch.from_numpy(np.stack([xpad[u:u + L] for u in t]))
     norm = torch.from_numpy(np.repeat(y[None], 32, 0))
@@ -635,7 +807,7 @@ def test_word_wise_gap_test_equals_gap_diff(case):
     d1 = t_overlap._gap_diff(ins, norm, cmt, limt).numpy()
     d2 = t_overlap._gap_diff(norm, ins, cmt, limt).numpy()
     dd = np.where((d1 < 0) | (d1 > limit), d2, d1)
-    assert np.array_equal(accept, (dd >= 0) & (dd <= limit))
+    assert np.array_equal(accept[rejected], ((dd >= 0) & (dd <= limit))[rejected])
     for k in range(32):
         assert _gap_diff_warp(x8[t[k]:], y8, int(cm[k]), int(limit[k])) == d1[k]
         assert _gap_diff_warp(y8, x8[t[k]:], int(cm[k]), int(limit[k])) == d2[k]
@@ -698,13 +870,15 @@ def test_needed_compares_counts_the_walk(setting):
     assert 0 < needed < full
 
 
-@pytest.mark.parametrize("name", ["gap", "adversarial"])
+@pytest.mark.parametrize("name", ["gap", "adversarial", "indels"])
 def test_gap_needed_compares_counts_the_walk(name):
     """chip_smoke.py's count of the byte compares behind the gapped
     variant's bound, against a walk of the gapped offsets one by one over
     the rows the ungapped pass leaves: each offset's test over olen - 2
-    positions (none below olen 3), stopped where its mismatches pass the
-    limit, else with its two last compares; the winner's difference once."""
+    positions (none below olen 3, and none at olen 52 or more, which such a
+    row cannot accept: test_no_gapped_accept_above_olen_51), stopped where
+    its mismatches pass the limit, else with its two last compares; the
+    winner's difference once."""
     seq1, rc2, l1, l2, setting = _gap_model_case(name)
     rows = (seq1, rc2, l1, l2)
     args = [torch.from_numpy(x) for x in rows]
@@ -719,7 +893,8 @@ def test_gap_needed_compares_counts_the_walk(name):
             assert walk[-1][1] == gapped[2][r]
             want += 2 * (int(gapped[2][r]) - 1)
         for _, o, x, y in walk:
-            want += _test_cost(x, y, o - 2 if o >= 3 else 0, int(_limit(o, dl, pct)), 2)
+            want += _test_cost(x, y, o - 2 if 3 <= o <= 51 else 0,
+                               int(_limit(o, dl, pct)), 2)
     assert gap_needed_compares(rows, ungapped, gapped, setting) == want
     assert gapped[4].any() or name == "adversarial"
 
